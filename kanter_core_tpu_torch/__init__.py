@@ -12,8 +12,12 @@ This package never imports JAX or `kanter_core_tpu`.
 Ported so far: the fused route from `TextureProcessor` through `LiveGraph`
 to `buffer_rgba`, for the node kinds Value, InputGray/InputRgba,
 OutputGray/OutputRgba, Mix (every mode but POW), HeightToNormal,
-SeparateRgba, CombineRgba, Embed and Blur (CUDA kernel `csrc/blur.cu`).
-Other kinds raise a `NODE_PROCESSING` error when evaluated.
+SeparateRgba, CombineRgba, Embed, Blur (CUDA kernel `csrc/blur.cu`), Noise,
+Pattern, Voronoi, Ramp, Curvature, AmbientOcclusion, Hsv, Distance (CUDA
+JFA step kernel `csrc/jfa.cu`) and Warp (CUDA gather kernel
+`csrc/warp.cu`) — every node of `graphs.flagship_graph`. Other kinds
+(Image, Graph, Write, Levels, GradientMap, Transform) raise a
+`NODE_PROCESSING` error when evaluated.
 """
 
 from .edge import Edge

@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
-_lock = threading.Lock()
+_locks: dict = {}  # library path → its build lock (distinct libraries build in parallel)
+_locks_guard = threading.Lock()
 
 
 def build_library(name: str, sources: list, command: list, key: str = "",
@@ -32,7 +34,9 @@ def build_library(name: str, sources: list, command: list, key: str = "",
             digest.update(f.read())
     digest.update(repr((command, key)).encode())
     path = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(path, threading.Lock())
+    with lock:
         if os.path.exists(path):
             return path
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -51,3 +55,59 @@ def build_library(name: str, sources: list, command: list, key: str = "",
         # atomic publish: a concurrent process never loads a partial file
         os.replace(tmp, path)
     return path
+
+
+# sm_90a keeps Hopper's arch-specific instructions available; -fmad=false
+# keeps every product separately rounded (the kernels' bit-exactness rests
+# on it); -Xptxas -v writes each kernel's registers and spills to the log
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+def nvcc() -> str:
+    """The CUDA compiler: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+class CudaKernel:
+    """One hand-written kernel source under `csrc/`, built with nvcc into a
+    shared library with a plain C entry point `symbol` on first use and
+    loaded through ctypes, and the count of its launches (`launches`: the
+    wrapper calls `count_launch` once per launch of the kernel, and
+    nowhere else)."""
+
+    def __init__(self, name: str, symbol: str, argtypes: list):
+        self.name = name
+        self.source = os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "csrc", f"{name}.cu"
+        )
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self.path = None  # the built library; its compiler output is path + ".log"
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def entry(self):
+        """The C entry point (building and loading the library on first
+        use); raises RuntimeError if the build fails."""
+        with self._lock:
+            if self._fn is None:
+                import ctypes
+
+                self.path = build_library(self.name, [self.source], [nvcc(), *NVCC_FLAGS])
+                fn = getattr(ctypes.CDLL(self.path), self.symbol)
+                fn.restype = ctypes.c_int
+                fn.argtypes = self.argtypes
+                self._fn = fn
+            return self._fn
+
+    def count_launch(self) -> None:
+        with self._lock:
+            self.launches += 1

@@ -5,10 +5,11 @@ one jitted XLA program; here the "program" is a cached Python evaluator that
 walks the graph in topological order and calls the ops' tensor functions
 eagerly on the device of its bindings. What carries over unchanged:
 
-- runtime-variable leaves are *arguments* (`Value` scalars, `InputGray`/
-  `InputRgba` planes, `Embed` planes, and the preset planes of a partition's
-  clean boundary), so an edit re-runs the cached evaluator with new
-  bindings;
+- runtime-variable leaves are *arguments* (`Value` scalars, the argument
+  fields of the parametric nodes — see `collect_value_bindings` —,
+  `InputGray`/`InputRgba` planes, `Embed` planes, and the preset planes of a
+  partition's clean boundary), so an edit re-runs the cached evaluator with
+  new bindings;
 - the resize pass before every node (`calculate_size` + `resample_plane`),
   with the eager path's edge-insertion order for policy ties;
 - the output layout (`call_with_layout`): every output plane is reported
@@ -16,12 +17,12 @@ eagerly on the device of its bindings. What carries over unchanged:
   gray→rgba coercion) share its index, like the reference's Arc-shared
   channel planes;
 - the structure fingerprint (`graph_fingerprint`) that keys the cache, with
-  Value constants normalized out.
+  the argument fields normalized out.
 
 Not carried over: `_const_guard` and the `optimization_barrier` shims, which
 keep XLA's constant folder away from constant planes — eager torch does not
-fold. Node kinds whose ops are not yet ported (Image, Graph, Write and the
-extension ops other than Blur) raise a `NODE_PROCESSING` error.
+fold. Node kinds whose ops are not yet ported (Image, Graph, Write, Levels,
+GradientMap and Transform) raise a `NODE_PROCESSING` error.
 """
 
 from __future__ import annotations
@@ -38,10 +39,19 @@ from .geometry import Size
 from .ids import NodeId, SlotId
 from .node import NodeTypeKind
 from .node_graph import NodeGraph
+from .ops.ambient_occlusion import ao_plane
 from .ops.blur import blur_plane
+from .ops.curvature import curvature_plane
+from .ops.distance import distance_plane
 from .ops.height_to_normal import h2n_planes
+from .ops.hsv import hsv_bindings, hsv_planes
 from .ops.mix import _binary
+from .ops.noise import noise_bindings, noise_plane
+from .ops.pattern import pattern_bindings, pattern_planes
+from .ops.ramp import ramp_bindings, ramp_plane
 from .ops.resize import calculate_size, resample_plane
+from .ops.voronoi import voronoi_bindings, voronoi_planes
+from .ops.warp import warp_bindings, warp_planes
 
 
 def _topo_order(graph) -> list:
@@ -313,7 +323,81 @@ class GraphCompiler:
                 )
             return [(SlotId(0), ImgVal(list(planes)))]
 
+        if kind == K.HSV:
+            inp = by_slot.get(SlotId(0))
+            if inp is None:
+                raise TexProError(ErrorKind.INVALID_BUFFER_COUNT, "Hsv needs an input")
+            return [(SlotId(0), ImgVal(hsv_planes(inp.planes, args[f"hsv_{nid}"])))]
+
+        if kind == K.CURVATURE:
+            inp = self._gray_input(by_slot, "Curvature")
+            return [(SlotId(0), ImgVal([curvature_plane(inp, args[f"curv_{nid}"])]))]
+
+        if kind == K.DISTANCE:
+            inp = self._gray_input(by_slot, "Distance")
+            return [(SlotId(0), ImgVal([distance_plane(inp, args[f"dist_{nid}"])]))]
+
+        if kind == K.AMBIENT_OCCLUSION:
+            inp = self._gray_input(by_slot, "AmbientOcclusion")
+            radius = node.node_type.payload[1]
+            return [(SlotId(0), ImgVal([ao_plane(inp, args[f"ao_{nid}"], radius)]))]
+
+        if kind == K.NOISE:
+            b = args[f"noise_{nid}"]
+            plane = noise_plane(
+                self._index(b["rows"]), self._index(b["cols"]), b["seed"],
+                b["persistence"], b["fx"], b["fy"], b["periods"],
+            )
+            return [(SlotId(0), ImgVal([plane]))]
+
+        if kind == K.PATTERN:
+            b = args[f"pattern_{nid}"]
+            mask, cells = pattern_planes(
+                node.node_type.payload[2],  # the kind is structure, not an argument
+                self._index(b["rows"]), self._index(b["cols"]), b["fx"], b["fy"],
+                b["px"], b["py"], b["mortar"], b["bevel"], b["seed"],
+            )
+            return [(SlotId(0), ImgVal([mask])), (SlotId(1), ImgVal([cells]))]
+
+        if kind == K.VORONOI:
+            b = args[f"voronoi_{nid}"]
+            planes = voronoi_planes(
+                self._index(b["rows"]), self._index(b["cols"]), b["fx"], b["fy"],
+                b["px"], b["py"], b["jitter"], b["seed"],
+            )
+            return [(SlotId(i), ImgVal([p])) for i, p in enumerate(planes)]
+
+        if kind == K.RAMP:
+            b = args[f"ramp_{nid}"]
+            plane = ramp_plane(
+                node.node_type.payload[2],  # the kind is structure
+                self._index(b["rows"]), self._index(b["cols"]), b["iw"], b["ih"], b["k"],
+            )
+            return [(SlotId(0), ImgVal([plane]))]
+
+        if kind == K.WARP:
+            inp = by_slot.get(SlotId(0))
+            if inp is None:
+                raise TexProError(ErrorKind.INVALID_BUFFER_COUNT, "Warp needs an input")
+            strength = by_slot.get(SlotId(1))
+            if strength is None:
+                # dangling strength: pass-through alias (the same ImgVal)
+                return [(SlotId(0), inp)]
+            outs = warp_planes(inp.planes, strength.planes[0], args[f"warp_{nid}"]["k"])
+            return [(SlotId(0), ImgVal(list(outs)))]
+
         raise _not_ported(kind)
+
+    def _index(self, arr) -> torch.Tensor:
+        """A host index vector of a procedural source, on the device."""
+        return torch.from_numpy(arr).to(self.device)
+
+    @staticmethod
+    def _gray_input(by_slot: dict, what: str) -> torch.Tensor:
+        inp = by_slot.get(SlotId(0))
+        if inp is None or inp.is_rgba:
+            raise TexProError(ErrorKind.INVALID_BUFFER_COUNT, f"{what} needs a Gray input")
+        return inp.planes[0]
 
 
 class CompiledGraph:
@@ -356,14 +440,52 @@ class CompiledGraph:
 
 
 def _normalize_values(graph_json):
-    """Zero out Value payloads: they are arguments, so two graphs differing
-    only in those constants share one cached evaluator."""
+    """Zero out the payload fields that are evaluator arguments (Value
+    constants, Curvature/AO strength, Distance spread, Hsv adjust, the
+    procedural sources' cells/seed/persistence/mortar/bevel/jitter/angle/
+    centre/scale, Warp angle and intensity), so two graphs differing only in
+    those share one cached evaluator. What shapes the evaluation stays:
+    sizes, octaves, Pattern and Ramp kinds, the AO radius, Blur sigma. Warp
+    is zeroed whole: the JAX package keeps its intensity's halo bucket for
+    the tiled and mesh programs, which the port does not have."""
     out = {"nodes": [], "edges": graph_json["edges"]}
     for node in graph_json["nodes"]:
         node_type = node["node_type"]
         if isinstance(node_type, dict):
             if "Value" in node_type:
                 node = dict(node, node_type={"Value": 0.0})
+            elif "Curvature" in node_type:
+                node = dict(node, node_type={"Curvature": 0.0})
+            elif "AmbientOcclusion" in node_type:
+                node = dict(node, node_type={"AmbientOcclusion": dict(
+                    node_type["AmbientOcclusion"], strength=0.0,
+                )})
+            elif "Distance" in node_type:
+                node = dict(node, node_type={"Distance": 0.0})
+            elif "Hsv" in node_type:
+                node = dict(node, node_type={"Hsv": {
+                    "hue": 0.0, "saturation": 0.0, "value": 0.0,
+                }})
+            elif "Noise" in node_type:
+                node = dict(node, node_type={"Noise": dict(
+                    node_type["Noise"], cells=0, seed=0, persistence=0.0,
+                )})
+            elif "Pattern" in node_type:
+                node = dict(node, node_type={"Pattern": dict(
+                    node_type["Pattern"], cells_x=0, cells_y=0,
+                    mortar=0.0, bevel=0.0, seed=0,
+                )})
+            elif "Voronoi" in node_type:
+                node = dict(node, node_type={"Voronoi": dict(
+                    node_type["Voronoi"], cells_x=0, cells_y=0,
+                    jitter=0.0, seed=0,
+                )})
+            elif "Ramp" in node_type:
+                node = dict(node, node_type={"Ramp": dict(
+                    node_type["Ramp"], angle=0.0, cx=0.0, cy=0.0, scale=0.0,
+                )})
+            elif "Warp" in node_type:
+                node = dict(node, node_type={"Warp": {"angle": 0.0, "intensity": 0.0}})
             elif "Graph" in node_type:
                 node = dict(node, node_type={"Graph": _normalize_values(node_type["Graph"])})
         out["nodes"].append(node)
@@ -378,9 +500,32 @@ def graph_fingerprint(node_graph: NodeGraph, extra: str = "") -> str:
 
 
 def collect_value_bindings(node_graph: NodeGraph) -> dict:
-    """Current Value payloads as argument overrides."""
-    return {
-        f"value_{int(node.node_id)}": np.float32(node.node_type.payload)
-        for node in node_graph.nodes
-        if node.node_type.kind == NodeTypeKind.VALUE
-    }
+    """The current evaluator arguments of every node (the payload fields
+    `_normalize_values` zeroes), as overrides."""
+    K = NodeTypeKind
+    bindings = {}
+    for node in node_graph.nodes:
+        kind = node.node_type.kind
+        payload = node.node_type.payload
+        nid = int(node.node_id)
+        if kind == K.VALUE:
+            bindings[f"value_{nid}"] = np.float32(payload)
+        elif kind == K.CURVATURE:
+            bindings[f"curv_{nid}"] = np.float32(payload)
+        elif kind == K.AMBIENT_OCCLUSION:
+            bindings[f"ao_{nid}"] = np.float32(payload[0])
+        elif kind == K.DISTANCE:
+            bindings[f"dist_{nid}"] = np.float32(payload)
+        elif kind == K.HSV:
+            bindings[f"hsv_{nid}"] = hsv_bindings(payload)
+        elif kind == K.NOISE:
+            bindings[f"noise_{nid}"] = noise_bindings(payload)
+        elif kind == K.PATTERN:
+            bindings[f"pattern_{nid}"] = pattern_bindings(payload)
+        elif kind == K.VORONOI:
+            bindings[f"voronoi_{nid}"] = voronoi_bindings(payload)
+        elif kind == K.RAMP:
+            bindings[f"ramp_{nid}"] = ramp_bindings(payload)
+        elif kind == K.WARP:
+            bindings[f"warp_{nid}"] = warp_bindings(payload)
+    return bindings

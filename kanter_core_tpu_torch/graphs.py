@@ -202,3 +202,72 @@ def resize_pyramid_graph(sizes=(512, 256, 128, 64), filt: ResizeFilter = ResizeF
     out = graph.add_node(Node(NodeType.OutputRgba("out")))
     graph.connect(prev, out, SlotId(0), SlotId(0))
     return graph
+
+
+def flagship_graph(canvas: int):
+    """The representative fused pipeline (a copy of the JAX package's
+    `__graft_entry__._flagship`): 4 gray inputs → the bounded logistic chain
+    (depth 8) → separate → ×FBM Noise → ×Brick Pattern mask → ×Distance fade
+    of the inverted mask (max_dist = canvas/8) → ×Voronoi borders → Lighten
+    radial Ramp → ×Curvature → ×AmbientOcclusion → HeightToNormal → Blur 1.2
+    → Hsv → Warp driven by the same Noise → OutputRgba "out". Every stage
+    reaches the output pixels. Returns (graph, input_ids, out_id)."""
+    graph, inputs, _white, chain_out = bounded_chain_graph(depth=8)
+    prev = graph.get_parents(chain_out)[0]
+    graph.remove_node(chain_out)
+    separate = graph.add_node(Node(NodeType.SeparateRgba()))
+    graph.connect(prev, separate, SlotId(0), SlotId(0))
+    noise = graph.add_node(Node(NodeType.Noise(canvas, canvas, 4, 3, 9, 0.5)))
+    nmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(separate, nmix, SlotId(0), SlotId(0))
+    graph.connect(noise, nmix, SlotId(0), SlotId(1))
+    pat = graph.add_node(Node(NodeType.Pattern(
+        canvas, canvas, "Brick", cells_x=4, cells_y=8,
+        mortar=0.12, bevel=0.06, seed=3,
+    )))
+    pmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(nmix, pmix, SlotId(0), SlotId(0))
+    graph.connect(pat, pmix, SlotId(0), SlotId(1))
+    # the Distance seeds sit in the mortar grooves (1 − mask), so the fade
+    # forms an apron reaching into the bricks
+    one = graph.add_node(Node(NodeType.Value(1.0)))
+    inv = graph.add_node(Node(NodeType.Mix(MixType.SUBTRACT)))
+    graph.connect(one, inv, SlotId(0), SlotId(0))
+    graph.connect(pat, inv, SlotId(0), SlotId(1))
+    dst = graph.add_node(Node(NodeType.Distance(float(canvas) / 8.0)))
+    graph.connect(inv, dst, SlotId(0), SlotId(0))
+    dmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(pmix, dmix, SlotId(0), SlotId(0))
+    graph.connect(dst, dmix, SlotId(0), SlotId(1))
+    vor = graph.add_node(Node(NodeType.Voronoi(
+        canvas, canvas, cells_x=6, cells_y=6, jitter=0.85, seed=5,
+    )))
+    vmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(dmix, vmix, SlotId(0), SlotId(0))
+    graph.connect(vor, vmix, SlotId(1), SlotId(1))
+    rmp = graph.add_node(Node(NodeType.Ramp(canvas, canvas, "Radial", 0.0, 0.5, 0.5, 0.9)))
+    rmix = graph.add_node(Node(NodeType.Mix(MixType.LIGHTEN)))
+    graph.connect(vmix, rmix, SlotId(0), SlotId(0))
+    graph.connect(rmp, rmix, SlotId(0), SlotId(1))
+    curv = graph.add_node(Node(NodeType.Curvature(5.0)))
+    graph.connect(rmix, curv, SlotId(0), SlotId(0))
+    cmix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(rmix, cmix, SlotId(0), SlotId(0))
+    graph.connect(curv, cmix, SlotId(0), SlotId(1))
+    ao = graph.add_node(Node(NodeType.AmbientOcclusion(2.0, 1.0)))
+    graph.connect(cmix, ao, SlotId(0), SlotId(0))
+    amix = graph.add_node(Node(NodeType.Mix(MixType.MULTIPLY)))
+    graph.connect(cmix, amix, SlotId(0), SlotId(0))
+    graph.connect(ao, amix, SlotId(0), SlotId(1))
+    h2n = graph.add_node(Node(NodeType.HeightToNormal()))
+    graph.connect(amix, h2n, SlotId(0), SlotId(0))
+    blur = graph.add_node(Node(NodeType.Blur(1.2)))
+    graph.connect(h2n, blur, SlotId(0), SlotId(0))
+    hsv = graph.add_node(Node(NodeType.Hsv(25.0, 1.1, 0.95)))
+    graph.connect(blur, hsv, SlotId(0), SlotId(0))
+    warp = graph.add_node(Node(NodeType.Warp(37.0, 5.0)))
+    graph.connect(hsv, warp, SlotId(0), SlotId(0))
+    graph.connect(noise, warp, SlotId(0), SlotId(1))
+    out = graph.add_node(Node(NodeType.OutputRgba("out")))
+    graph.connect(warp, out, SlotId(0), SlotId(0))
+    return graph, inputs, out

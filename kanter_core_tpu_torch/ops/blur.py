@@ -23,14 +23,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import os
-import shutil
-import threading
 
 import numpy as np
 import torch
 
-from ..build import build_library
+from ..build import CudaKernel
 from ..errors import ErrorKind, TexProError
 
 
@@ -67,46 +64,15 @@ def blur_plane_plain(plane: torch.Tensor, sigma: float) -> torch.Tensor:
     return _blur_axis0(vert.t(), taps).t().contiguous()
 
 
-_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "blur.cu"
-)
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-]
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
-class CudaBlurKernel:
-    """The built `csrc/blur.cu` library, its tap tables on each device, and
-    the count of kernel launches (`launches`, one per `blur_plane_cuda`
-    call that launched the kernel)."""
+class CudaBlurKernel(CudaKernel):
+    """The `csrc/blur.cu` kernel, with its tap tables on each device."""
 
     def __init__(self):
-        self.launches = 0
-        self.path = None  # the built library; its compiler output is path + ".log"
-        self._lib = None
-        self._lock = threading.Lock()
+        super().__init__(
+            "blur", "kanter_blur_wrap_f32",
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        )
         self._taps: dict = {}  # (sigma, device) → f32 tap tensor on the device
-
-    def library(self):
-        """Build (first use) and load the kernel library; raises on failure."""
-        with self._lock:
-            if self._lib is None:
-                self.path = build_library("blur", [_SOURCE], [_nvcc(), *_NVCC_FLAGS])
-                lib = ctypes.CDLL(self.path)
-                fn = lib.kanter_blur_wrap_f32
-                fn.restype = ctypes.c_int
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                self._lib = lib
-            return self._lib
 
     def device_taps(self, sigma: float, device: torch.device) -> torch.Tensor:
         key = (round(float(sigma), 6), str(device))
@@ -116,10 +82,6 @@ class CudaBlurKernel:
                 taps = torch.from_numpy(_taps_for(sigma)).to(device)
                 self._taps[key] = taps
             return taps
-
-    def count_launch(self) -> None:
-        with self._lock:
-            self.launches += 1
 
 
 BLUR_KERNEL = CudaBlurKernel()
@@ -139,13 +101,13 @@ def blur_plane_cuda(plane: torch.Tensor, sigma: float) -> torch.Tensor:
             f"{plane.dtype} {tuple(plane.shape)} on {plane.device}",
         )
     h, w = plane.shape
-    lib = BLUR_KERNEL.library()
+    kernel = BLUR_KERNEL.entry()
     taps = BLUR_KERNEL.device_taps(sigma, plane.device)
     scratch = torch.empty_like(plane)
     out = torch.empty_like(plane)
     with torch.cuda.device(plane.device):
         stream = torch.cuda.current_stream(plane.device).cuda_stream
-        rc = lib.kanter_blur_wrap_f32(
+        rc = kernel(
             plane.data_ptr(), scratch.data_ptr(), out.data_ptr(), taps.data_ptr(),
             len(taps), h, w, stream,
         )

@@ -30,3 +30,10 @@ def f32_to_u8(x):
     v = c * 255.0
     v = torch.where(torch.isnan(v), 255.0, torch.clamp(v, max=255.0))
     return v.to(torch.uint8)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root on every device: the f64 root,
+    rounded once (53 >= 2*24 + 2 bits, so the double rounding is
+    innocuous). Torch's f32 `sqrt` on the CPU is not correctly rounded."""
+    return torch.sqrt(x.double()).float()

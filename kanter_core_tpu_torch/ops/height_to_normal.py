@@ -10,8 +10,8 @@ order (`norm = sqrt((x² + y²) + z²)`, componentwise divide), remapped as
 Plain torch; the JAX package keeps no kernel for this op either. Exactness
 on every device rests on four rules:
 
-- square roots go through f64 (`_sqrt`): torch's f32 `sqrt` on the CPU is
-  not correctly rounded (measured: 7,281 of 1e6 random inputs off by one ulp
+- square roots go through f64 (`common.sqrt_f32`): torch's f32 `sqrt` on
+  the CPU is not correctly rounded (measured: 7,281 of 1e6 random inputs off by one ulp
   against numpy, torch 2.13 AVX-512), while an f64 square root rounded to
   f32 is (53 ≥ 2·24 + 2 bits, so the double rounding is innocuous);
 - tensor-by-tensor division is IEEE division on the CPU and on CUDA;
@@ -28,12 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .common import sqrt_f32
+
 f32 = np.float32
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded f32 square root on every device."""
-    return torch.sqrt(x.double()).float()
 
 
 def _h2n_core(h: torch.Tensor, up: torch.Tensor, height: int, width: int):
@@ -50,19 +47,19 @@ def _h2n_core(h: torch.Tensor, up: torch.Tensor, height: int, width: int):
 
     # tangent = normalize([pdx, 0, h - left])
     tz = h - left
-    tnorm = _sqrt(float(f32(pdx * pdx) + f32(0.0)) + tz * tz)
+    tnorm = sqrt_f32(float(f32(pdx * pdx) + f32(0.0)) + tz * tz)
     tx, ty, tzn = full(pdx) / tnorm, full(0.0) / tnorm, tz / tnorm
 
     # bitangent = normalize([0, pdy, up - h])
     bz = up - h
-    bnorm = _sqrt(float(f32(0.0) + f32(pdy * pdy)) + bz * bz)
+    bnorm = sqrt_f32(float(f32(0.0) + f32(pdy * pdy)) + bz * bz)
     bx, by, bzn = full(0.0) / bnorm, full(pdy) / bnorm, bz / bnorm
 
     # normal = normalize(cross(tangent, bitangent))
     cx = ty * bzn - tzn * by
     cy = tzn * bx - tx * bzn
     cz = tx * by - ty * bx
-    cnorm = _sqrt((cx * cx + cy * cy) + cz * cz)
+    cnorm = sqrt_f32((cx * cx + cy * cy) + cz * cz)
     nx, ny, nz = cx / cnorm, cy / cnorm, cz / cnorm
 
     return (
