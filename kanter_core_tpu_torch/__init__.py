@@ -17,7 +17,9 @@ Pattern, Voronoi, Ramp, Curvature, AmbientOcclusion, Hsv, Distance (CUDA
 JFA step kernel `csrc/jfa.cu`) and Warp (CUDA gather kernel
 `csrc/warp.cu`) — every node of `graphs.flagship_graph`. Other kinds
 (Image, Graph, Write, Levels, GradientMap, Transform) raise a
-`NODE_PROCESSING` error when evaluated.
+`NODE_PROCESSING` error when evaluated. `TextureProcessor(mesh=...)` holds
+the planes row-sharded over a device mesh (`parallel.make_mesh`), with the
+Blur and Warp block kernels run per shard after a ring halo exchange.
 """
 
 from .edge import Edge
@@ -44,7 +46,7 @@ from .ops.embed import EmbeddedSlotData, EmbeddedSlotDataId
 from .priority import Priority, PriorityPropagator
 from .slot_data import ChannelPixel, SlotData
 from .slot_image import SlotImage
-from . import compiler, convert, graphs, models, native, profiling
+from . import compiler, convert, graphs, models, native, parallel, profiling
 from .compiler import CompiledGraph
 from .texture_processor import TextureProcessor
 from .transient_buffer import AtomicUsize, PlaneBuffer, PlaneBufferQueue, Tier
@@ -91,5 +93,6 @@ __all__ = [
     "graphs",
     "models",
     "native",
+    "parallel",
     "profiling",
 ]

@@ -19,6 +19,16 @@ eagerly on the device of its bindings. What carries over unchanged:
 - the structure fingerprint (`graph_fingerprint`) that keys the cache, with
   the argument fields normalized out.
 
+With a `mesh` (`TextureProcessor(mesh=...)`), every plane whose rows shard
+over the mesh is a `parallel.sharded.ShardedPlane` — the engine shards the
+leaf planes by the placement rule of the JAX package's `_shard_overrides`,
+and the evaluator creates constant and procedural planes, and resizes, the
+same way — while smaller planes (1×1 Values) stay tensors on the mesh's
+first device. Each op dispatches on `ShardedPlane`: elementwise ops run
+shard by shard, the stencils (HeightToNormal, Curvature) and the Blur and
+Warp kernels exchange ring halos, and Distance gathers (see the ops). The
+results are bit-identical to the single-device evaluator.
+
 Not carried over: `_const_guard` and the `optimization_barrier` shims, which
 keep XLA's constant folder away from constant planes — eager torch does not
 fold. Node kinds whose ops are not yet ported (Image, Graph, Write, Levels,
@@ -49,9 +59,10 @@ from .ops.mix import _binary
 from .ops.noise import noise_bindings, noise_plane
 from .ops.pattern import pattern_bindings, pattern_planes
 from .ops.ramp import ramp_bindings, ramp_plane
-from .ops.resize import calculate_size, resample_plane
+from .ops.resize import calculate_size, resample_any
 from .ops.voronoi import voronoi_bindings, voronoi_planes
 from .ops.warp import warp_bindings, warp_planes
+from .parallel.sharded import ShardedPlane, map_bands
 
 
 def _topo_order(graph) -> list:
@@ -117,12 +128,15 @@ def _as_type(img: ImgVal, rgba: bool) -> ImgVal:
         return img
     if rgba:
         g = img.planes[0]
-        return ImgVal([g, g, g, torch.ones_like(g)])
-    r, g, b = img.planes[:3]
+        return ImgVal([g, g, g, map_bands(torch.ones_like, g)])
+    return ImgVal([map_bands(_rgb_mean, *img.planes[:3])])
+
+
+def _rgb_mean(r, g, b):
     s = (r + g) + b
     # a full-tensor divisor: a scalar divisor may become a reciprocal
     # multiply on CUDA and round differently from the reference's division
-    return ImgVal([s / torch.full_like(s, 3.0)])
+    return s / torch.full_like(s, 3.0)
 
 
 def _not_ported(kind) -> TexProError:
@@ -132,25 +146,38 @@ def _not_ported(kind) -> TexProError:
 
 
 class GraphCompiler:
-    """Evaluates a NodeGraph's nodes in topological order on `device`."""
+    """Evaluates a NodeGraph's nodes in topological order on `device`, or
+    row-sharded over `mesh` (whose first device is then `device`)."""
 
-    def __init__(self, node_graph: NodeGraph, device: torch.device, preset=None):
+    def __init__(self, node_graph: NodeGraph, device: torch.device, preset=None, mesh=None):
         self.node_graph = node_graph
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else torch.device(device)
         # preset: {(NodeId, SlotId): n_planes} — nodes whose outputs are
         # already computed (clean boundary of a dirty partition); their
         # planes are arguments instead of being re-evaluated.
         self.preset = dict(preset or {})
 
-    def _zeros(self, shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+    def _full(self, shape, value: float):
+        """A constant plane, row-sharded when its rows shard over the mesh."""
+        h, w = shape
+        if self.mesh is not None and self.mesh.shardable(h):
+            bh = h // self.mesh.n
+            return ShardedPlane(self.mesh, [
+                torch.full((bh, w), float(value), dtype=torch.float32, device=d)
+                for d in self.mesh.devices
+            ])
+        return torch.full(shape, float(value), dtype=torch.float32, device=self.device)
 
-    def _ones(self, shape) -> torch.Tensor:
-        return torch.ones(shape, dtype=torch.float32, device=self.device)
+    def _zeros(self, shape):
+        return self._full(shape, 0.0)
+
+    def _ones(self, shape):
+        return self._full(shape, 1.0)
 
     def _from_value(self, size: Size, value: float, rgba: bool) -> ImgVal:
         shape = (size.height, size.width)
-        plane = torch.full(shape, float(value), dtype=torch.float32, device=self.device)
+        plane = self._full(shape, value)
         if rgba:
             return ImgVal([plane, plane, plane, self._ones(shape)])
         return ImgVal([plane])
@@ -187,7 +214,8 @@ class GraphCompiler:
                         sd.node_id,
                         sd.slot_id,
                         ImgVal(
-                            [resample_plane(p, size, node.resize_filter) for p in sd.img.planes]
+                            [resample_any(p, size, node.resize_filter, self.mesh)
+                             for p in sd.img.planes]
                         )
                         if sd.size() != size
                         else sd.img,
@@ -257,10 +285,10 @@ class GraphCompiler:
             else:
                 return [(SlotId(0), ImgVal([self._zeros((1, 1))]))]
             if left.is_rgba:
-                planes = [op(left.planes[i], right.planes[i]) for i in range(3)]
-                planes.append(torch.ones_like(planes[0]))
+                planes = [map_bands(op, left.planes[i], right.planes[i]) for i in range(3)]
+                planes.append(map_bands(torch.ones_like, planes[0]))
             else:
-                planes = [op(left.planes[0], right.planes[0])]
+                planes = [map_bands(op, left.planes[0], right.planes[0])]
             return [(SlotId(0), ImgVal(planes))]
 
         if kind == K.HEIGHT_TO_NORMAL:
@@ -344,34 +372,39 @@ class GraphCompiler:
 
         if kind == K.NOISE:
             b = args[f"noise_{nid}"]
-            plane = noise_plane(
-                self._index(b["rows"]), self._index(b["cols"]), b["seed"],
-                b["persistence"], b["fx"], b["fy"], b["periods"],
+            plane = self._source(
+                lambda rows, cols: noise_plane(
+                    rows, cols, b["seed"], b["persistence"], b["fx"], b["fy"], b["periods"],
+                ), b["rows"], b["cols"],
             )
             return [(SlotId(0), ImgVal([plane]))]
 
         if kind == K.PATTERN:
             b = args[f"pattern_{nid}"]
-            mask, cells = pattern_planes(
-                node.node_type.payload[2],  # the kind is structure, not an argument
-                self._index(b["rows"]), self._index(b["cols"]), b["fx"], b["fy"],
-                b["px"], b["py"], b["mortar"], b["bevel"], b["seed"],
+            kind_name = node.node_type.payload[2]  # the kind is structure, not an argument
+            mask, cells = self._source(
+                lambda rows, cols: pattern_planes(
+                    kind_name, rows, cols, b["fx"], b["fy"], b["px"], b["py"],
+                    b["mortar"], b["bevel"], b["seed"],
+                ), b["rows"], b["cols"],
             )
             return [(SlotId(0), ImgVal([mask])), (SlotId(1), ImgVal([cells]))]
 
         if kind == K.VORONOI:
             b = args[f"voronoi_{nid}"]
-            planes = voronoi_planes(
-                self._index(b["rows"]), self._index(b["cols"]), b["fx"], b["fy"],
-                b["px"], b["py"], b["jitter"], b["seed"],
+            planes = self._source(
+                lambda rows, cols: voronoi_planes(
+                    rows, cols, b["fx"], b["fy"], b["px"], b["py"], b["jitter"], b["seed"],
+                ), b["rows"], b["cols"],
             )
             return [(SlotId(i), ImgVal([p])) for i, p in enumerate(planes)]
 
         if kind == K.RAMP:
             b = args[f"ramp_{nid}"]
-            plane = ramp_plane(
-                node.node_type.payload[2],  # the kind is structure
-                self._index(b["rows"]), self._index(b["cols"]), b["iw"], b["ih"], b["k"],
+            kind_name = node.node_type.payload[2]  # the kind is structure
+            plane = self._source(
+                lambda rows, cols: ramp_plane(kind_name, rows, cols, b["iw"], b["ih"], b["k"]),
+                b["rows"], b["cols"],
             )
             return [(SlotId(0), ImgVal([plane]))]
 
@@ -383,14 +416,28 @@ class GraphCompiler:
             if strength is None:
                 # dangling strength: pass-through alias (the same ImgVal)
                 return [(SlotId(0), inp)]
-            outs = warp_planes(inp.planes, strength.planes[0], args[f"warp_{nid}"]["k"])
+            b = args[f"warp_{nid}"]
+            outs = warp_planes(inp.planes, strength.planes[0], b["k"], halo=b["halo"])
             return [(SlotId(0), ImgVal(list(outs)))]
 
         raise _not_ported(kind)
 
-    def _index(self, arr) -> torch.Tensor:
-        """A host index vector of a procedural source, on the device."""
-        return torch.from_numpy(arr).to(self.device)
+    def _source(self, fn, rows, cols):
+        """A procedural source `fn(rows, cols)` over the host index vectors:
+        on the device, or shard by shard over the slice of `rows` each shard
+        holds when they shard over the mesh (every pixel is a function of
+        its own global row and column, so the bits are unchanged)."""
+        mesh = self.mesh
+        if mesh is None or not mesh.shardable(len(rows)):
+            return fn(torch.from_numpy(rows).to(self.device), torch.from_numpy(cols).to(self.device))
+        bh = len(rows) // mesh.n
+        results = [
+            fn(torch.from_numpy(rows[j * bh:(j + 1) * bh]).to(d), torch.from_numpy(cols).to(d))
+            for j, d in enumerate(mesh.devices)
+        ]
+        if isinstance(results[0], (tuple, list)):
+            return tuple(ShardedPlane(mesh, bands) for bands in zip(*results))
+        return ShardedPlane(mesh, results)
 
     @staticmethod
     def _gray_input(by_slot: dict, what: str) -> torch.Tensor:
@@ -401,17 +448,19 @@ class GraphCompiler:
 
 
 class CompiledGraph:
-    """A cached, reusable evaluator for a node graph on one device.
+    """A cached, reusable evaluator for a node graph on one device, or
+    row-sharded over a `mesh`.
 
     `call_with_layout` evaluates every node not in `preset` and returns the
     unique output planes plus the layout that maps each output slot to them.
     """
 
-    def __init__(self, node_graph: NodeGraph, device, preset=None):
+    def __init__(self, node_graph: NodeGraph, device, preset=None, mesh=None):
         self.node_graph = node_graph
-        self.device = torch.device(device)
+        self.mesh = mesh
         self.preset = dict(preset or {})
-        self._compiler = GraphCompiler(node_graph, self.device, preset=self.preset)
+        self._compiler = GraphCompiler(node_graph, device, preset=self.preset, mesh=mesh)
+        self.device = self._compiler.device
         self._bindings = collect_value_bindings(node_graph)
 
     def call_with_layout(self, **overrides):

@@ -28,8 +28,21 @@
 // single-pass tile, TMA loads and a register-blocked vertical pass are later
 // work.
 //
-// The C entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError().
+// The block form, `kanter_blur_block_f32`, replaces `_blur_block`
+// (pallas_blur.py:419), which `_blur_pallas_sharded` (pallas_blur.py:474)
+// runs on every shard of a row-sharded plane after a ring exchange of
+// +-radius rows. It blurs one [block_h, W] row block whose vertical
+// neighbours arrive as two explicit halos: `top`, the r rows before the
+// block, and `bot`, the r rows after it. The vertical pass reads row
+// y + t - r of the window [top; block; bot] straight from whichever of the
+// three buffers holds it (no concatenated copy, as the TPU kernel DMAs the
+// block in place); the horizontal pass is the dense one on block_h rows.
+// Same taps, same order, same zero-initialised accumulator, so a sharded
+// blur is bit-identical to the dense one. Bound as the dense form: bytes,
+// 16 per pixel plus the 2*r*W*4 bytes of the halos.
+//
+// The C entry points launch on the caller's stream, allocate nothing and
+// return cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -56,6 +69,36 @@ __global__ void blur_vertical(const float* __restrict__ in, float* __restrict__ 
         for (int t = 0; t < ntaps; ++t) {
             const int sy = wrap_index(y + t - r, h);
             acc = __fadd_rn(acc, __fmul_rn(in[(size_t)sy * w + x], s_taps[t]));
+        }
+        out[(size_t)y * w + x] = acc;
+    }
+}
+
+// row sy in [-r, block_h + r) of the window [top; block; bot]
+__device__ __forceinline__ const float* window_row(const float* top, const float* block,
+                                                   const float* bot, int sy, int r,
+                                                   int block_h, int w) {
+    if (sy < 0) return top + (size_t)(sy + r) * w;
+    if (sy >= block_h) return bot + (size_t)(sy - block_h) * w;
+    return block + (size_t)sy * w;
+}
+
+__global__ void blur_vertical_block(const float* __restrict__ top,
+                                    const float* __restrict__ block,
+                                    const float* __restrict__ bot, float* __restrict__ out,
+                                    const float* __restrict__ taps, int ntaps, int block_h,
+                                    int w) {
+    extern __shared__ float s_taps[];
+    for (int t = threadIdx.x; t < ntaps; t += blockDim.x) s_taps[t] = taps[t];
+    __syncthreads();
+    const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    if (x >= w) return;
+    const int r = (ntaps - 1) / 2;
+    for (int y = blockIdx.y; y < block_h; y += gridDim.y) {
+        float acc = 0.0f;
+        for (int t = 0; t < ntaps; ++t) {
+            const float* row = window_row(top, block, bot, y + t - r, r, block_h, w);
+            acc = __fadd_rn(acc, __fmul_rn(row[x], s_taps[t]));
         }
         out[(size_t)y * w + x] = acc;
     }
@@ -88,18 +131,39 @@ __global__ void blur_horizontal(const float* __restrict__ in, float* __restrict_
     }
 }
 
+dim3 grid_for(int h, int w) {
+    return dim3((w + kThreads - 1) / kThreads, h < kMaxGridY ? h : kMaxGridY);
+}
+
+size_t horizontal_smem(int ntaps) {
+    return (size_t)(ntaps + kThreads + (ntaps - 1)) * sizeof(float);
+}
+
 }  // namespace
 
 extern "C" int kanter_blur_wrap_f32(const float* in, float* scratch, float* out,
                                     const float* taps, int ntaps, int h, int w,
                                     cudaStream_t stream) {
-    const dim3 block(kThreads);
-    const dim3 grid((w + kThreads - 1) / kThreads, h < kMaxGridY ? h : kMaxGridY);
-    const size_t vertical_smem = (size_t)ntaps * sizeof(float);
-    const size_t horizontal_smem = (size_t)(ntaps + kThreads + (ntaps - 1)) * sizeof(float);
-    blur_vertical<<<grid, block, vertical_smem, stream>>>(in, scratch, taps, ntaps, h, w);
+    const dim3 grid = grid_for(h, w);
+    blur_vertical<<<grid, kThreads, ntaps * sizeof(float), stream>>>(in, scratch, taps, ntaps,
+                                                                    h, w);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    blur_horizontal<<<grid, block, horizontal_smem, stream>>>(scratch, out, taps, ntaps, h, w);
+    blur_horizontal<<<grid, kThreads, horizontal_smem(ntaps), stream>>>(scratch, out, taps,
+                                                                       ntaps, h, w);
+    return (int)cudaGetLastError();
+}
+
+// top and bot hold (ntaps - 1) / 2 rows each, block block_h >= that many
+extern "C" int kanter_blur_block_f32(const float* top, const float* block, const float* bot,
+                                     float* scratch, float* out, const float* taps, int ntaps,
+                                     int block_h, int w, cudaStream_t stream) {
+    const dim3 grid = grid_for(block_h, w);
+    blur_vertical_block<<<grid, kThreads, ntaps * sizeof(float), stream>>>(
+        top, block, bot, scratch, taps, ntaps, block_h, w);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    blur_horizontal<<<grid, kThreads, horizontal_smem(ntaps), stream>>>(scratch, out, taps,
+                                                                       ntaps, block_h, w);
     return (int)cudaGetLastError();
 }

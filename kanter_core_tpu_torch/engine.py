@@ -18,9 +18,14 @@ thread. Fatal errors mirror the reference's engine panic (`engine.rs:111-119`)
 by setting `shutdown` and recording the error on the live graph, so blocked
 `await_clean_*` callers re-raise it instead of hanging.
 
+With a mesh (`TextureProcessor(mesh=...)`) the fused dispatch row-shards
+its argument planes by the JAX package's rule (`_shard_overrides`) and
+evaluates the partition over the mesh; the sharded result planes are
+committed as slot data (and kept by the recipe cache) as they are.
+
 Not yet ported: the per-node route (taken under `auto_update`, with
-`fuse_subgraphs=False`, and for Write sinks) and the tiled, bucketed,
-segmented and mesh routes. A per-node dispatch fails its graph with a
+`fuse_subgraphs=False`, and for Write sinks) and the tiled, bucketed and
+segmented routes. A per-node dispatch fails its graph with a
 `NODE_PROCESSING` error saying so.
 """
 
@@ -33,6 +38,19 @@ from collections import OrderedDict
 from .errors import ErrorKind, TexProError
 from .live_graph import LiveGraph, NodeState
 from .process_pack import ProcessPack
+
+
+def _shard_overrides(overrides: dict, mesh) -> dict:
+    """Row-shard every plane of the evaluator's arguments whose rows shard
+    over the mesh (rows ≥ n and divisible by n), the JAX package's
+    `_shard_overrides`; every other plane is a tensor on the mesh's first
+    device. Planes already sharded pass as they are."""
+    from .parallel.sharded import place
+
+    return {
+        key: tuple(place(mesh, p) for p in value) if isinstance(value, tuple) else value
+        for key, value in overrides.items()
+    }
 
 
 class _ThreadMessage:
@@ -138,6 +156,9 @@ class _WorkerPool:
         while task is not None:
             fn, args = task
             fn(*args)
+            # an idle worker must not keep the finished task's engine, live
+            # graph and planes alive for its idle TTL
+            fn = args = task = None
             task = self._wait_for_task()
 
 
@@ -660,20 +681,24 @@ class Engine:
         from .slot_image import SlotImage
         from .transient_buffer import plane_from_device
 
+        from .parallel.sharded import ShardedPlane
+
         preset = {
             key: len(slot_data.image.planes) for key, slot_data in boundary.items()
         }
+        mesh = self.tex_pro.mesh
         try:
             fingerprint = graph_fingerprint(
                 snapshot,
-                extra=repr(sorted((int(n), int(s), c) for (n, s), c in preset.items())),
+                extra=repr(sorted((int(n), int(s), c) for (n, s), c in preset.items()))
+                + ("" if mesh is None else repr(mesh.shape)),
             )
             with self._fused_programs_lock:
                 prog = self._fused_programs.get(fingerprint)
                 if prog is not None:
                     self._fused_programs.move_to_end(fingerprint)
             if prog is None:
-                prog = CompiledGraph(snapshot, self.tex_pro.device, preset=preset)
+                prog = CompiledGraph(snapshot, self.tex_pro.device, preset=preset, mesh=mesh)
                 with self._fused_programs_lock:
                     self._fused_programs[fingerprint] = prog
                     while len(self._fused_programs) > self.FUSED_PROGRAM_CACHE_CAP:
@@ -686,8 +711,12 @@ class Engine:
 
             def planes(image):
                 # leaves bound from host memory (numpy planes) move to the
-                # processor's device; device-resident planes pass as they are
-                return tuple(buf.data().to(device) for buf in image.planes)
+                # processor's device; device-resident and sharded planes
+                # pass as they are
+                return tuple(
+                    d if isinstance(d, ShardedPlane) else d.to(device)
+                    for d in (buf.data() for buf in image.planes)
+                )
 
             for (nid, slot), slot_data in boundary.items():
                 overrides[f"preset_{int(nid)}_{int(slot)}"] = planes(slot_data.image)
@@ -698,6 +727,8 @@ class Engine:
                 for slot_data in input_datas:
                     overrides[f"input_{int(slot_data.node_id)}"] = planes(slot_data.image)
 
+            if mesh is not None:
+                overrides = _shard_overrides(overrides, mesh)
             unique_planes, layout = prog.call_with_layout(**overrides)
             # wrap each unique plane once; aliased outputs share the
             # PlaneBuffer (reference: Arc-shared channel planes), so a plane

@@ -8,7 +8,8 @@ Port of `kanter_core_tpu/ops/ambient_occlusion.py`:
 The three wrap blurs go through `ops/blur.blur_plane`, so on a CUDA tensor
 they are three launches of the blur kernel (`csrc/blur.cu`); the shared
 weight folds into the strength scalar on the host (one f32 rounding) before
-the one plane multiply, as in the JAX combine.
+the one plane multiply, as in the JAX combine. A row-sharded height takes
+three sharded blurs (`blur.blur_plane_sharded`) and the combine per shard.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.sharded import map_bands
 from .blur import blur_plane
 
 AO_SCALE_FACTORS = (1.0, 2.0, 4.0)
@@ -38,7 +40,7 @@ def ao_combine(center: torch.Tensor, blurred, strength) -> torch.Tensor:
     return torch.clamp(1.0 - occ * st, 0.0, 1.0)
 
 
-def ao_plane(plane: torch.Tensor, strength, radius: float) -> torch.Tensor:
-    """AO of one `[H, W]` gray plane."""
+def ao_plane(plane, strength, radius: float):
+    """AO of one `[H, W]` gray plane (or `ShardedPlane`)."""
     blurred = [blur_plane(plane, s) for s in ao_sigmas(radius)]
-    return ao_combine(plane, blurred, strength)
+    return map_bands(lambda c, *b: ao_combine(c, b, strength), plane, *blurred)

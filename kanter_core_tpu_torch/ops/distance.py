@@ -17,6 +17,11 @@ The nearest-seed state is one packed i32 plane (`y << 16 | x`, sentinel
 a CUDA tensor (which raises if it cannot build or launch); there is no
 fallback. Seed packing and the final fade are plain torch on the device:
 the root in f64 rounded once, the division by a full tensor, the clip.
+
+Under a mesh the JAX package runs no kernel here (its jnp rolls lower to
+collective permutes, `compiler.py:445-447`). The port gathers a row-sharded
+mask to the mesh's first device (a `distance` gather), runs the single-card
+ladder there and shards the result again.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from ..build import CudaKernel
 from ..errors import ErrorKind, TexProError
+from ..parallel.sharded import ShardedPlane, shard_planes_rows
 from .common import sqrt_f32
 
 _SENTINEL = 0x7FFFFFFF
@@ -159,9 +165,12 @@ def jfa_propagate(state: torch.Tensor) -> torch.Tensor:
     raise TexProError(ErrorKind.NODE_PROCESSING, f"no JFA for device {state.device}")
 
 
-def distance_plane(mask: torch.Tensor, max_dist) -> torch.Tensor:
-    """Normalized distance fade of one `[H, W]` gray plane; `max_dist` is
-    an f32 scalar (pixels)."""
+def distance_plane(mask, max_dist):
+    """Normalized distance fade of one `[H, W]` gray plane (or
+    `ShardedPlane`); `max_dist` is an f32 scalar (pixels)."""
+    if isinstance(mask, ShardedPlane):
+        whole = mask.gather(mask.mesh.devices[0], "distance")
+        return shard_planes_rows(mask.mesh, distance_plane(whole, max_dist))
     h, w = mask.shape
     packed = jfa_propagate(pack_seeds(mask))
     rows, cols = _coords(h, w, mask.device)

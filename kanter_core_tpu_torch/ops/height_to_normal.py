@@ -7,7 +7,9 @@ tangent/bitangent normalization and cross product in nalgebra's operation
 order (`norm = sqrt((x² + y²) + z²)`, componentwise divide), remapped as
 `n * 0.5 + 0.5`, alpha forced to 1.
 
-Plain torch; the JAX package keeps no kernel for this op either. Exactness
+Plain torch; the JAX package keeps no kernel for this op either. A
+row-sharded height (`TextureProcessor(mesh=...)`) takes a 1-row ring halo
+and runs the same math per shard with the canvas's global height and width. Exactness
 on every device rests on four rules:
 
 - square roots go through f64 (`common.sqrt_f32`): torch's f32 `sqrt` on
@@ -28,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.sharded import ShardedPlane, map_bands
 from .common import sqrt_f32
 
 f32 = np.float32
@@ -70,8 +73,16 @@ def _h2n_core(h: torch.Tensor, up: torch.Tensor, height: int, width: int):
     )
 
 
-def h2n_planes(h: torch.Tensor):
-    """`[H, W]` height → the four `[H, W]` planes of the normal map."""
+def h2n_planes(h):
+    """`[H, W]` height → the four `[H, W]` planes of the normal map (four
+    `ShardedPlane`s for a sharded height)."""
+    if isinstance(h, ShardedPlane):
+        height, width = h.shape
+        ups = ShardedPlane(h.mesh, [
+            torch.cat([top, band[:-1]], dim=0)  # row y−1, wrapped
+            for band, (top, _bot) in zip(h.bands, h.ring_halos(1))
+        ])
+        return map_bands(lambda b, up: _h2n_core(b, up, height, width), h, ups)
     # roll on a length-1 axis is the identity
     up = h if h.shape[0] == 1 else torch.roll(h, 1, dims=0)
     return _h2n_core(h, up, *h.shape)

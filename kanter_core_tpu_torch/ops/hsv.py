@@ -4,13 +4,16 @@ Port of `kanter_core_tpu/ops/hsv.py`. RGB → hexcone HSV (ties in r→g→b
 order), shift the hue by whole sectors, scale and clip saturation and
 value, back to RGB through the same select tree; a gray image is only
 value-scaled. Alpha passes through by alias. Plain torch in the JAX
-function's op order; every division is by a full tensor.
+function's op order; every division is by a full tensor. Row-sharded
+planes are adjusted shard by shard.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel.sharded import ShardedPlane, map_bands
 
 
 def hsv_bindings(payload) -> np.ndarray:
@@ -25,6 +28,10 @@ def hsv_bindings(payload) -> np.ndarray:
 def hsv_planes(planes, params) -> list:
     """Adjust a 1- or 4-plane pixel stack; `params` from `hsv_bindings`.
     Returns as many planes; plane 3 (alpha) is the input's tensor."""
+    if any(isinstance(p, ShardedPlane) for p in planes):
+        colors = planes[:1] if len(planes) == 1 else planes[:3]
+        out = list(map_bands(lambda *ps: tuple(hsv_planes(ps, params)), *colors))
+        return out + list(planes[3:])
     shift6, sat, val = (float(x) for x in np.asarray(params, np.float32))
     if len(planes) == 1:
         return [torch.clamp(planes[0] * val, 0.0, 1.0)]

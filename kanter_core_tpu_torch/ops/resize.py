@@ -220,18 +220,48 @@ def _apply_axis0(plane: torch.Tensor, lefts, weights, in_len: int) -> torch.Tens
     return torch.clamp(acc, 0.0, 1.0)
 
 
-def resample_plane(plane: torch.Tensor, out_size: Size, filt: ResizeFilter) -> torch.Tensor:
+def resample_plane(plane: torch.Tensor, out_size: Size, filt: ResizeFilter,
+                   rows=None) -> torch.Tensor:
     """Bit-exact resize of one `[H, W]` plane to `out_size`, on the plane's
     device. Matches `imageops::resize`: vertical pass (height) then
-    horizontal pass (width), each clamping to [0, 1]."""
+    horizontal pass (width), each clamping to [0, 1]. `rows`, a
+    `(start, stop)` pair, computes only those output rows (one shard's
+    band): every output row is a sum of its own taps, so the band holds the
+    same bits as those rows of the whole result."""
     in_h, in_w = plane.shape
     lefts_v, weights_v = resample_weights(in_h, out_size.height, filt)
+    if rows is not None:
+        lefts_v, weights_v = lefts_v[rows[0]:rows[1]], weights_v[rows[0]:rows[1]]
     tmp = _apply_axis0(plane, lefts_v, weights_v, in_h)  # [outH, W]
     lefts_h, weights_h = resample_weights(in_w, out_size.width, filt)
     return _apply_axis0(tmp.t(), lefts_h, weights_h, in_w).t().contiguous()
 
 
 # --- resize policy resolution (`shared.rs:61-139`) ---
+def resample_any(plane, out_size: Size, filt: ResizeFilter, mesh=None):
+    """`resample_plane` under a mesh (None: as it is). A plane whose target
+    rows shard over the mesh is built band by band from a tensor operand
+    (a 1×1 Value, a plane of rows that do not shard); a `ShardedPlane`
+    resized to another size is gathered to the mesh's first device (a
+    `resize` gather), resized there and placed by the rule of
+    `parallel.sharded.place`."""
+    from ..parallel.sharded import ShardedPlane, place
+
+    if isinstance(plane, ShardedPlane):
+        if plane.shape == (out_size.height, out_size.width):
+            return plane
+        whole = plane.gather(plane.mesh.devices[0], "resize")
+        return place(plane.mesh, resample_plane(whole, out_size, filt))
+    if mesh is None or not mesh.shardable(out_size.height):
+        return resample_plane(plane, out_size, filt)
+    bh = out_size.height // mesh.n
+    copies = {d: plane.to(d) for d in set(mesh.devices)}
+    return ShardedPlane(mesh, [
+        resample_plane(copies[d], out_size, filt, rows=(j * bh, (j + 1) * bh))
+        for j, d in enumerate(mesh.devices)
+    ])
+
+
 def calculate_size(slot_datas, edges, policy: ResizePolicy) -> Size:
     kind = policy.kind
     K = ResizePolicyKind

@@ -24,9 +24,15 @@ def _wrapped_floor(coord: torch.Tensor, extent: int):
     return fl, torch.remainder(idx, extent)
 
 
-def bilinear_wrap_gather(planes, u: torch.Tensor, v: torch.Tensor, wh: int, ww: int):
+def bilinear_wrap_gather(planes, u: torch.Tensor, v: torch.Tensor, wh: int, ww: int,
+                         row_local=None):
     """Bilinear samples of each `[wh, ww]` plane at continuous texel
-    coordinates `u`/`v` (`[nr, nc]` f32), wrapping toroidally."""
+    coordinates `u`/`v` (`[nr, nc]` f32), wrapping toroidally.
+
+    `row_local` (optional) maps the wrapped GLOBAL source rows to rows of
+    `planes` when they hold a row subset of the canvas (a shard's
+    halo-extended block): integer-only, after the wrap, so the texels and
+    every lerp bit are those of the full-plane gather."""
     uf, x0 = _wrapped_floor(u, ww)
     vf, y0 = _wrapped_floor(v, wh)
     fu = u - uf
@@ -34,6 +40,8 @@ def bilinear_wrap_gather(planes, u: torch.Tensor, v: torch.Tensor, wh: int, ww: 
     x1 = torch.where(x0 + 1 == ww, 0, x0 + 1)
     y1 = torch.where(y0 + 1 == wh, 0, y0 + 1)
     stride = planes[0].shape[1]  # every plane of an image has one shape
+    if row_local is not None:
+        y0, y1 = row_local(y0), row_local(y1)
     row0 = y0.to(torch.int64) * stride
     row1 = y1.to(torch.int64) * stride
     i00, i10, i01, i11 = row0 + x0, row0 + x1, row1 + x0, row1 + x1

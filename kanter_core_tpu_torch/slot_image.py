@@ -8,7 +8,9 @@ be shared between images (zero-copy aliasing, e.g. SeparateRgba / `as_type`).
 The u8 export reproduces the reference bit-for-bit, including its NaN
 behavior: `f32_to_u8` is `((value.clamp(0,1) * 255.).min(255.)) as u8`
 (`slot_image.rs:142-144`) where Rust's `min` maps NaN to 255 and `as u8`
-truncates toward zero. It runs as plain torch on the planes' device.
+truncates toward zero. It runs as plain torch on the planes' device; a
+row-sharded image is converted shard by shard and only its packed u8 rows
+are gathered to the host (one `export` gather per image).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from .errors import ErrorKind, TexProError
 from .geometry import Size
 from .ops.common import f32_to_u8
+from .parallel.sharded import ShardedPlane, map_bands
 from .transient_buffer import PlaneBuffer, Tier, plane_from_device, plane_from_host
 
 
@@ -136,9 +139,10 @@ class SlotImage:
     def to_u8(self) -> np.ndarray:
         """Flat row-major interleaved RGBA u8 pixels."""
         planes = self._tensors()
-        out = rgba_to_u8(*planes) if self.is_rgba() else gray_to_u8(planes[0])
+        out = map_bands(rgba_to_u8 if self.is_rgba() else gray_to_u8, *planes)
+        out = out.gather("cpu", "export") if isinstance(out, ShardedPlane) else out.cpu()
         # little-endian int32 words → interleaved RGBA bytes, zero-copy
-        return np.ascontiguousarray(out.cpu().numpy()).view(np.uint8).reshape(-1)
+        return np.ascontiguousarray(out.numpy()).view(np.uint8).reshape(-1)
 
     def to_u8_srgb(self) -> np.ndarray:
         raise TexProError(
@@ -158,7 +162,7 @@ class SlotImage:
         if not self.is_rgba():
             # gray → rgba: alias the gray plane ×3, fresh alpha=1 plane
             g = self.planes[0]
-            alpha = plane_from_device(torch.ones_like(g.data()))
+            alpha = plane_from_device(map_bands(torch.ones_like, g.data()))
             return SlotImage([g, g, g, alpha])
         r, g, b = (self.planes[i].data() for i in range(3))
-        return SlotImage([plane_from_device(rgb_mean(r, g, b))])
+        return SlotImage([plane_from_device(map_bands(rgb_mean, r, g, b))])

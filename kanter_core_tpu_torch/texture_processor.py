@@ -7,7 +7,9 @@ dropping the processor flips the shutdown flag (`:27-31`). It is also a
 context manager for deterministic teardown.
 
 The processor runs on one explicit `device`; every plane it computes lives
-there, and everything below it takes the device from its inputs.
+there, and everything below it takes the device from its inputs. With a
+`mesh` (`parallel.make_mesh`), every plane whose rows shard over the mesh
+is held row-sharded over its devices, and `device` is the mesh's first.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from .errors import ErrorKind, TexProError
 from .ids import NodeId, SlotId
 from .live_graph import LiveGraph
 from .node import AtomicFlag
+from .parallel.sharded import MESH_COUNTERS, Mesh
 from .process_pack import ProcessPackManager
 from .profiling import NodeTimeline
 from .recipe_cache import RecipeCache
@@ -64,11 +67,18 @@ class TextureProcessor:
         spill to disk. `device`: "cuda" (default; raises without a card) or
         "cpu", where every kernel takes its plain torch version.
 
-        `mesh`, `tile_bytes`, `bucket_sizes` and `precision` select the JAX
-        package's mesh, tiled, bucketed and bf16 routes, which are not yet
+        `mesh`: an optional `parallel.Mesh` (`parallel.make_mesh`) whose
+        devices are of `device`'s type. Every fused dispatch then holds each
+        plane whose rows shard over the mesh row-sharded across its devices,
+        with ring halo exchanges for the stencils and the Blur and Warp
+        block kernels, bit-identically to one device (the JAX package's
+        `TextureProcessor(mesh=...)`). `tp.metrics()["mesh"]` counts the
+        exchanges and, by cause, every gather of a sharded plane.
+
+        `tile_bytes`, `bucket_sizes` and `precision` select the JAX
+        package's tiled, bucketed and bf16 routes, which are not yet
         ported: anything but their defaults raises."""
         unported = {
-            "mesh": mesh is not None,
             "tile_bytes": tile_bytes is not None,
             "bucket_sizes": bool(bucket_sizes),
             "precision": precision not in (None, "float32"),
@@ -79,6 +89,19 @@ class TextureProcessor:
                     ErrorKind.NODE_PROCESSING, f"TextureProcessor({name}=...) is not yet ported"
                 )
         self.device = resolve_device(device)
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TexProError(
+                    ErrorKind.GENERIC,
+                    f"mesh must be a kanter_core_tpu_torch.parallel.Mesh, got {type(mesh).__name__}",
+                )
+            if mesh.device_type != self.device.type:
+                raise TexProError(
+                    ErrorKind.GENERIC,
+                    f"a {mesh.device_type} mesh for a {self.device.type} processor",
+                )
+            self.device = mesh.devices[0]
+        self.mesh = mesh
         if not isinstance(memory_threshold, AtomicUsize):
             memory_threshold = AtomicUsize(memory_threshold)
         self.memory_threshold = memory_threshold
@@ -185,9 +208,17 @@ class TextureProcessor:
 
     def metrics(self) -> dict:
         """Observability snapshot: buffer-tier bytes, in-flight dispatches,
-        per-node-kind timing summary, evaluator cache size."""
+        per-node-kind timing summary, evaluator cache size and, with a mesh,
+        its devices and `parallel.MESH_COUNTERS` (ring exchanges, gathers by
+        cause). Those counts are process-wide: they include every other
+        processor's and every direct sharded call's in this process; reset
+        them (`MESH_COUNTERS.reset()`) before the work to be counted."""
+        mesh = None
+        if self.mesh is not None:
+            mesh = {"devices": [str(d) for d in self.mesh.devices], **MESH_COUNTERS.snapshot()}
         return {
             "device": str(self.device),
+            "mesh": mesh,
             "bytes_device": self.buffer_queue.bytes_memory(),
             "bytes_host": self.buffer_queue.bytes_host(),
             "bytes_storage": self.buffer_queue.bytes_storage(),

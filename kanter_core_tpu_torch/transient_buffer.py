@@ -15,6 +15,11 @@ one of three tiers:
 least-recently-touched planes device→host, and an optional host watermark by
 spilling host→disk. Every plane remembers its home device, so a fault-in
 returns it to the device it was evicted from.
+
+A row-sharded plane (`parallel.sharded.ShardedPlane`, under
+`TextureProcessor(mesh=...)`) is one DEVICE-tier plane: it counts its total
+bytes, is evicted to the host as one array (a `host` gather), and a fault-in
+shards it over its mesh again.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from .errors import ErrorKind, TexProError
 from .geometry import Size
+from .parallel.sharded import Mesh, ShardedPlane, shard_planes_rows
 
 # per-process spill directory: files are deleted on reload/drop, but a
 # crashed process can't clean up after itself — stale sibling directories
@@ -106,7 +112,7 @@ class PlaneBuffer:
     Analog of `TransientBufferContainer` + `TransientBuffer`
     (`transient_buffer.rs:28-247`). The size is cached so size queries never
     fault data in (`transient_buffer.rs:188-201`). `home` is the device the
-    DEVICE tier lives on.
+    DEVICE tier lives on, or the `Mesh` a sharded plane is sharded over.
     """
 
     __slots__ = ("_lock", "_tier", "_device", "_host", "_path", "_salt", "_height",
@@ -114,18 +120,18 @@ class PlaneBuffer:
 
     _dtype = np.dtype(np.float32)
 
-    def __init__(self, *, device: Optional[torch.Tensor] = None, host=None, home=None):
+    def __init__(self, *, device=None, host=None, home=None):
         self._lock = threading.RLock()
         self._queue = None  # PlaneBufferQueue that manages this buffer, if any
         if device is not None:
-            if device.dtype != torch.float32 or device.dim() != 2:
+            if device.dtype != torch.float32 or len(device.shape) != 2:
                 raise TexProError(
                     ErrorKind.GENERIC, "a plane is a 2-D float32 tensor"
                 )
             self._tier = Tier.DEVICE
             self._device = device
             self._host = None
-            self._home = device.device
+            self._home = device.mesh if isinstance(device, ShardedPlane) else device.device
             self._height, self._width = device.shape
         else:
             host = np.ascontiguousarray(host, dtype=np.float32)
@@ -162,8 +168,9 @@ class PlaneBuffer:
         return self._tier
 
     # --- access ---
-    def data(self) -> torch.Tensor:
-        """The plane as a tensor on its home device, faulting it in if
+    def data(self):
+        """The plane as a tensor on its home device (a `ShardedPlane` over
+        its home mesh), faulting it in if
         spilled. Faulting holds only the PLANE lock; the LRU move happens
         after, under the queue lock alone (lock order is queue → plane
         everywhere, so taking the queue lock while holding the plane lock
@@ -198,7 +205,7 @@ class PlaneBuffer:
         """The plane as a host ndarray without promoting it to the device."""
         with self._lock:
             if self._tier == Tier.DEVICE:
-                return self._device.cpu().numpy()
+                return _to_host(self._device)
             if self._tier == Tier.STORAGE:
                 self._load_from_storage_locked()
                 self._tier = Tier.HOST
@@ -207,7 +214,11 @@ class PlaneBuffer:
     def _fault_in_locked(self) -> None:
         if self._tier == Tier.STORAGE:
             self._load_from_storage_locked()
-        self._device = torch.from_numpy(self._host).to(self._home)
+        plane = torch.from_numpy(self._host)
+        if isinstance(self._home, Mesh):
+            self._device = shard_planes_rows(self._home, plane.to(self._home.devices[0]))
+        else:
+            self._device = plane.to(self._home)
         self._host = None
         self._tier = Tier.DEVICE
 
@@ -233,7 +244,7 @@ class PlaneBuffer:
         with self._lock:
             if self._tier != Tier.DEVICE:
                 return False
-            self._host = self._device.cpu().numpy()
+            self._host = _to_host(self._device)
             self._device = None
             self._tier = Tier.HOST
             return True
@@ -291,12 +302,20 @@ class PlaneBuffer:
                 pass
 
 
+def _to_host(plane) -> np.ndarray:
+    """A device-tier plane as a host array (a sharded plane is gathered,
+    counted as a `host` gather)."""
+    if isinstance(plane, ShardedPlane):
+        return plane.gather("cpu", "host").numpy()
+    return plane.cpu().numpy()
+
+
 def plane_from_host(array, home=None) -> PlaneBuffer:
     """A HOST-tier plane that faults in to `home` (default: the CPU)."""
     return PlaneBuffer(host=array, home=home)
 
 
-def plane_from_device(tensor: torch.Tensor) -> PlaneBuffer:
+def plane_from_device(tensor) -> PlaneBuffer:
     return PlaneBuffer(device=tensor)
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's slice, on one GPU.
 
-    python3 scripts/torch_slice_profile.py [--size 4096] [--graph pbr|flagship|both] [--out DIR]
+    python3 scripts/torch_slice_profile.py [--size 4096] [--graph pbr|flagship|both]
+                                           [--mesh N] [--out DIR]
 
 Two sequences, each rendered once on a warm-up processor (first CUDA use,
 kernel builds) and then profiled on a fresh one, with `torch.profiler` (CPU
@@ -15,10 +16,13 @@ and CUDA activities):
   Distance spread edit (size/8 → size/16) and the Warp intensity edit
   (5 → 9), re-reading `out` after each.
 
+`--mesh N` runs both on `TextureProcessor(mesh=...)` with N row shards, on
+N cards when N are visible and all on `cuda:0` otherwise.
+
 For each window it prints the wall time, the summed device-kernel time,
-the device idle share (1 − kernel time / wall) and the top kernels by
-device time; the Chrome traces go to `--out` (default `out/torch_profile/`,
-ignored by git). Needs a CUDA device.
+the device idle share (1 − kernel time / wall), the top kernels by device
+time and the top operators by host (self CPU) time; the Chrome traces go to
+`--out` (default `out/torch_profile/`, ignored by git). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--size", type=int, default=4096)
     parser.add_argument("--graph", choices=["pbr", "flagship", "both"], default="both")
+    parser.add_argument("--mesh", type=int, default=0, help="row shards (0: one device)")
     parser.add_argument("--out", default=os.path.join(ROOT, "out", "torch_profile"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -53,19 +58,27 @@ def main() -> int:
     from kanter_core_tpu_torch.convert import planes_from_numpy
     from kanter_core_tpu_torch.graphs import flagship_graph
     from kanter_core_tpu_torch.models import pbr_material_graph
+    from kanter_core_tpu_torch.parallel import make_mesh
+
+    mesh = None
+    if args.mesh:
+        if torch.cuda.device_count() >= args.mesh:
+            mesh = make_mesh(args.mesh)
+        else:
+            mesh = make_mesh(devices=["cuda:0"] * args.mesh)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    print(f"card: {card}; torch {torch.__version__}; size {args.size}²", flush=True)
+    print(f"card: {card}; torch {torch.__version__}; size {args.size}²; mesh {mesh}", flush=True)
     os.makedirs(args.out, exist_ok=True)
     n = args.size
     height = np.random.default_rng(0).random((n, n), dtype=np.float32)
 
     def session(build):
         """(processor, live graph, {output name: id}) holding `build`'s graph."""
-        tp = TextureProcessor(memory_threshold=16 << 30, device="cuda")
+        tp = TextureProcessor(memory_threshold=16 << 30, device="cuda", mesh=mesh)
         lg = tp.new_live_graph()
         with lg.write() as g:
             # the flagship session keeps every node's data, as chip_smoke.py's does
@@ -162,11 +175,16 @@ def main() -> int:
                     e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA
                 ) / 1e3
-                print(f"\n== {name} {label}: wall {wall_ms:.3f} ms, device kernels "
+                tag = f"{name} {label}" + ("" if mesh is None else f" mesh {mesh.n}")
+                print(f"\n== {tag}: wall {wall_ms:.3f} ms, device kernels "
                       f"{device_ms:.3f} ms, device idle share {1 - device_ms / wall_ms:.3f}",
                       flush=True)
                 print(events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
-                prof.export_chrome_trace(os.path.join(args.out, f"torch_{name}_{label}.json"))
+                print(events.table(sort_by="self_cpu_time_total", row_limit=8), flush=True)
+                suffix = "" if mesh is None else f"_mesh{mesh.n}"
+                prof.export_chrome_trace(
+                    os.path.join(args.out, f"torch_{name}_{label}{suffix}.json")
+                )
         finally:
             tp.shutdown_now()
     return 0

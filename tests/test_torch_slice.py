@@ -249,7 +249,7 @@ def test_concurrent_reads_and_edits_settle_to_a_fresh_render():
 
 def test_import_pulls_in_no_jax():
     code = (
-        "import sys, kanter_core_tpu_torch; "
+        "import sys, kanter_core_tpu_torch, kanter_core_tpu_torch.parallel; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'kanter_core_tpu' or m.startswith('kanter_core_tpu.')]; "
         "assert not bad, bad"
@@ -263,9 +263,15 @@ def test_import_pulls_in_no_jax():
     ids=lambda o: next(iter(o)),
 )
 def test_unported_routes_raise(option):
+    """The tiled, bucketed and bf16 routes are not ported; the mesh route
+    is (`tests/test_torch_mesh.py`), and a mesh that is not a
+    `parallel.Mesh` raises."""
     with pytest.raises(port.TexProError) as err:
         port.TextureProcessor(device="cpu", **option)
-    assert "not yet ported" in str(err.value)
+    if "mesh" in option:
+        assert "mesh must be" in str(err.value)
+    else:
+        assert "not yet ported" in str(err.value)
 
 
 def test_cuda_processor_without_card_raises():
