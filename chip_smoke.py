@@ -15,13 +15,21 @@ Phases, each of which raises (exit code != 0) on failure:
    timings (median of 20 runs after warm-up) at 4096² of the kernel, the
    plain version and one PyTorch library call computing the same function
    (timed only, never used by the port):
-   - blur at 4096² σ=0.8, 1.2, 6.0 and edge shapes (1×1, 5×4096 with 37
-     taps, 97×411, 4096×1); library call: `F.conv2d` on `F.pad(circular)`
-     input, the separable pair;
+   - blur at 4096² at every σ the main path launches (the PBR graph's 0.8,
+     6.0 and 4.0, the flagship's 1.2 and its AO node's three sigmas) and
+     edge shapes: 1×1, 5×4096 with 37 taps, 97×411, 4096×1, widths and
+     heights one below, at and one above a tile edge, widths 1, 3 and 411
+     (no 16-byte alignment), a radius above the tile's height, the widest
+     tiled radius (31) and the two-pass form above it; library call:
+     `F.conv2d` on `F.pad(circular)` input, the separable pair;
    - JFA, the full ladder on the packed i32 state: 4096² masks at seed
      density 1e-4 and 1e-2, seedless, all-seed and a tie storm (seeds on
-     every other pixel); edge shapes 1×1, 5×4096, 97×411, 4096×1, 33×2049;
-     no library call computes it;
+     every other pixel); edge shapes 1×1, 5×4096, 97×411, 4096×1, 33×2049
+     (steps that do not divide the extents or reach past them), 16², 10×12
+     (smaller than the fused halo), 96×160 (lattices of odd length) and
+     6000² (past the f32 metric, so the i32 one); each launch of the
+     4096² ladder timed alone besides the ladder; no library call computes
+     it;
    - Warp of 4096² RGBA at (37°, 5), (0°, 5), (90°, 64), (37°, 1000) with a
      strength map holding NaN and out-of-range values; edge shapes 1×1,
      97×411, 4096×1; library call: `F.grid_sample` on a circularly padded
@@ -39,16 +47,19 @@ Phases, each of which raises (exit code != 0) on failure:
    editing session does):
    read `out`, then the chain's `v` Value edit (0.96→0.93), the Distance
    spread edit (512→256) and the Warp intensity edit (5→9), re-reading `out`
-   after each; counters set to 0 just before; the JFA kernel must launch 13
-   times on the render, 0 on the Value edit, 13 on the Distance edit and 0
-   on the Warp edit, the warp kernel once per read;
+   after each; counters set to 0 just before; the JFA kernels must launch
+   one ladder of `distance.jfa_launch_plan(4096, 4096)` (its far steps
+   through `kanter_jfa_step_i32`, its near run through
+   `kanter_jfa_near_i32`) on the render, none on the Value edit, one on the
+   Distance edit and none on the Warp edit, the warp kernel once per read;
 6. card vs CPU: the PBR sequence and the flagship sequence at 1024² on
    `device="cuda"` and on `device="cpu"` (the port's plain path); u8 exports
    must be identical and every f32 plane must have 0 mismatches;
 7. the mesh route's block kernels against their plain versions on the card,
    0 mismatches: the blur block (`kanter_blur_block_f32`) on the four row
-   blocks of a 4096² plane at σ=0.8, 1.2, 6.0 with ring halos taken from
-   the plane, and on edge blocks (block_h == radius, widths 1 and 411); the
+   blocks of a 4096² plane at every σ of the main path with ring halos taken
+   from the plane, and on edge blocks (block_h == radius, widths 1 and 411,
+   halos that are unaligned views into a plane, the two-pass form); the
    warp block (`kanter_warp_block_f32`) on the four blocks of 4096² RGBA at
    (37°, 5) and (90°, 64) with NaN and out-of-range strength. Then the
    sharded calls (`blur_plane_sharded`, `warp_planes_mesh`, four shards)
@@ -70,8 +81,9 @@ Phases, each of which raises (exit code != 0) on failure:
 9. mesh on the card vs mesh on the CPU: both sequences at 1024² over four
    shards; u8 identical, 0 f32 mismatches.
 
-The second-to-last line is a JSON object describing the kernels; the last
-line is `{"ok": true, "device": {...}}`.
+The third-to-last line ranks the kernels by launches × (ms − bound) over
+the four sequences, the second-to-last is a JSON object describing the
+kernels, the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -93,6 +105,11 @@ CANVAS = 4096  # the main path's canvas, rows and columns
 # Published peaks of one H100 SXM (NVIDIA data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # outside the tensor cores
+# The data sheet's rate counts a fused multiply-add as two operations. A
+# kernel whose products and sums may not fuse (the blur: its bit-exactness
+# rests on separately rounded products) spends one instruction slot per
+# operation, and the card has half as many of those a second.
+FP32_UNFUSED_OPS = FP32_FLOPS / 2
 # 32-bit integer instructions per second: each of the 132 SMs executes them on
 # its 64 INT32 lanes and (IMAD) its 128 FP32 lanes, at the 1.98 GHz boost
 # clock (Hopper white paper); the data sheet lists no INT32 rate
@@ -130,8 +147,11 @@ def mismatches(a, b) -> int:
     return int((a != b).sum().item())
 
 
-def time_cuda(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of `fn()` over `runs` CUDA-event-timed calls. The
+def time_cuda(fn, runs: int = 20, warmup: int = 3, calls: int = 1) -> float:
+    """Median milliseconds of `fn()` over `runs` CUDA-event-timed readings.
+    A reading holds `calls` calls back to back and is divided by them: with
+    one call it includes the wrapper's host time before the launch, with
+    ten the card is kept busy and it is the device's time per call. The
     events are on the current device; where `fn` also works on other cards,
     its end event waits for their streams first."""
     import torch
@@ -147,12 +167,13 @@ def time_cuda(fn, runs: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         for d in others:
             torch.cuda.current_stream(here).wait_stream(torch.cuda.current_stream(d))
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -201,14 +222,47 @@ def blur_library(x, taps):
     return F.conv2d(F.pad(v, (r, r, 0, 0), mode="circular"), t.view(1, 1, 1, -1))[0, 0]
 
 
+def main_path_sigmas() -> list:
+    """Every sigma the two graphs of the main path hand to the blur kernel:
+    the PBR graph's Blur nodes and its sigma edit, the flagship's Blur node
+    and the three sigmas of its AmbientOcclusion node."""
+    from kanter_core_tpu_torch import NodeTypeKind
+    from kanter_core_tpu_torch.graphs import flagship_graph
+    from kanter_core_tpu_torch.models import pbr_material_graph
+    from kanter_core_tpu_torch.ops.ambient_occlusion import ao_sigmas
+
+    sigmas = {4.0}  # the PBR sequence's sigma edit
+    for graph in (pbr_material_graph(), flagship_graph(CANVAS)[0]):
+        for node in graph.nodes:
+            if node.node_type.kind == NodeTypeKind.BLUR:
+                sigmas.add(round(float(node.node_type.payload), 6))
+            elif node.node_type.kind == NodeTypeKind.AMBIENT_OCCLUSION:
+                sigmas.update(ao_sigmas(node.node_type.payload[1]))
+    return sorted(sigmas)
+
+
+def blur_bound(n_px: int, halo_bytes: int, taps: int):
+    """The blur's bound: the plane read and written once (plus a block's
+    halos) against two unfused operations per tap and pass."""
+    return bound_ms(8.0 * n_px + halo_bytes, 2 * 2 * taps * n_px, FP32_UNFUSED_OPS)
+
+
 def blur_phase(kp_blur) -> dict:
     import torch
 
     rng = np.random.default_rng(1)
-    shapes = [
-        (4096, 4096, 0.8), (4096, 4096, 1.2), (4096, 4096, 6.0),
+    shapes = [(CANVAS, CANVAS, sigma) for sigma in main_path_sigmas()]
+    shapes += [
         (1, 1, 0.8), (1, 1, 6.0), (5, 4096, 6.0),
         (97, 411, 0.8), (97, 411, 6.0), (4096, 1, 0.8), (4096, 1, 6.0),
+        # one below, at and one above a tile edge (64 rows, 128 columns)
+        (63, 127, 1.2), (64, 128, 1.2), (65, 129, 1.2), (63, 127, 6.0), (64, 128, 6.0),
+        (65, 129, 6.0), (128, 256, 4.0), (129, 257, 4.0),
+        # no 16-byte alignment of rows; a radius above the tile's height
+        (200, 3, 0.8), (200, 3, 6.0), (37, 411, 1.2), (8, 300, 6.0), (16, 300, 6.0),
+        (40, 300, 6.0), (100, 300, 6.0),
+        # the widest tiled radius, and the two-pass form above it
+        (200, 333, 10.3), (31, 31, 10.3), (200, 333, 10.4), (40, 50, 30.0), (300, 1, 12.0),
     ]
     max_err = 0.0
     timings = []
@@ -225,19 +279,19 @@ def blur_phase(kp_blur) -> dict:
             f"{bad} bit mismatches, max_abs_err={err}")
         if bad:
             raise AssertionError(f"blur kernel differs from plain at {h}x{w} σ={sigma}")
-        if (h, w) == (4096, 4096):
+        if (h, w) == (CANVAS, CANVAS):
             ms = time_cuda(lambda: kp_blur.blur_plane_cuda(x, sigma))
+            device_ms = time_cuda(lambda: kp_blur.blur_plane_cuda(x, sigma), calls=10)
             plain_ms = time_cuda(lambda: kp_blur.blur_plane_plain(x, sigma))
             library_ms = time_cuda(lambda: blur_library(x, taps))
             lib_err = float((blur_library(x, taps) - want).abs().max().item())
-            n = h * w
-            bound, by = bound_ms(8.0 * n, 2 * 2 * len(taps) * n, FP32_FLOPS)
-            log(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                f"{library_ms:.4f} ms (max |library − plain| {lib_err:.3g}), "
-                f"bound {bound:.4f} ms ({by})")
+            bound, by = blur_bound(h * w, 0, len(taps))
+            log(f"  time: kernel {ms:.4f} ms ({device_ms:.4f} ms back to back), plain "
+                f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (max |library − plain| "
+                f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
             timings.append({"shape": f"{h}x{w}", "sigma": sigma, "taps": len(taps),
-                            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                            "bound_ms": bound, "bound_by": by})
+                            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": bound, "bound_by": by})
     return {"max_abs_err": max_err, "timings": timings}
 
 
@@ -257,36 +311,90 @@ def jfa_mask(h, w, kind, rng):
     return torch.from_numpy(m).cuda()
 
 
+def jfa_bound(n_px: int, n_steps: int):
+    """The bound of `n_steps` jump-flood steps: the state read and written
+    once per step (the least with the steps as separate passes) against the
+    fold's integer operations."""
+    return bound_ms(8.0 * n_px * n_steps, JFA_OPS_PER_PX_STEP * n_px * n_steps, INT32_OPS)
+
+
 def jfa_phase(kp_dist) -> dict:
+    """Phase 3, JFA. Returns the far-step entry's and the near entry's
+    results, each `{"max_abs_err", "timings"}`."""
     import torch
 
     rng = np.random.default_rng(2)
-    cases = [(4096, 4096, k) for k in ("1e-4", "1e-2", "seedless", "all", "ties")]
+    cases = [(CANVAS, CANVAS, k) for k in ("1e-4", "1e-2", "seedless", "all", "ties")]
     cases += [(1, 1, "all"), (5, 4096, "1e-2"), (97, 411, "1e-2"), (4096, 1, "1e-2"),
-              (33, 2049, "1e-3")]
-    timings = []
+              (33, 2049, "1e-3"), (16, 16, "1e-1"), (10, 12, "1e-1"), (10, 12, "seedless"),
+              (96, 160, "1e-2"), (96, 160, "ties"), (6000, 6000, "1e-4"), (3, 7, "all")]
+    step_timings, near_timings = [], []
     for h, w, kind in cases:
         state = kp_dist.pack_seeds(jfa_mask(h, w, kind, rng))
+        before = (kp_dist.JFA_KERNEL.launches, kp_dist.JFA_NEAR_KERNEL.launches)
         got = kp_dist.jfa_propagate_cuda(state)
+        plan = kp_dist.jfa_launch_plan(h, w)
+        far = [launch for launch in plan if launch.entry == "step"]
+        near = [launch for launch in plan if launch.entry == "near"]
+        launched = (kp_dist.JFA_KERNEL.launches - before[0],
+                    kp_dist.JFA_NEAR_KERNEL.launches - before[1])
+        if launched != (len(far), len(near)):
+            raise AssertionError(f"JFA launches {launched}, the plan has {len(far)} + {len(near)}")
         want = kp_dist.jfa_propagate_plain(state)
         torch.cuda.synchronize()
         bad = mismatches(got, want)
         steps = kp_dist._jfa_steps(h, w)
-        log(f"kernel jfa {h}x{w} mask={kind} steps={len(steps)}: {bad} bit mismatches")
+        forms = sorted({kp_dist.jfa_step_form(k, h, w) for launch in far for k in launch.steps})
+        log(f"kernel jfa {h}x{w} mask={kind} steps={len(steps)} in {len(far)} far launches "
+            f"{forms} + {len(near)} near launch of {near[0].steps}: {bad} bit mismatches")
         if bad:
             raise AssertionError(f"JFA kernel differs from plain at {h}x{w} mask={kind}")
-        if (h, w) == (4096, 4096) and kind in ("1e-4", "1e-2"):
+        if (h, w) == (CANVAS, CANVAS) and kind in ("1e-4", "1e-2"):
+            n = h * w
             ms = time_cuda(lambda: kp_dist.jfa_propagate_cuda(state))
             plain_ms = time_cuda(lambda: kp_dist.jfa_propagate_plain(state))
-            n = h * w
-            bound, by = bound_ms(8.0 * n * len(steps), JFA_OPS_PER_PX_STEP * n * len(steps),
-                                 INT32_OPS)
-            log(f"  time: kernel {ms:.4f} ms ({len(steps)} launches), plain {plain_ms:.4f} ms, "
-                f"library none, bound {bound:.4f} ms ({by})")
-            timings.append({"shape": f"{h}x{w}", "density": kind, "steps": len(steps),
-                            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                            "bound_ms": bound, "bound_by": by})
-    return {"max_abs_err": 0, "timings": timings}
+            bound, by = jfa_bound(n, len(steps))
+            # each launch alone, from the state the ladder hands it
+            per_launch = []
+            at = state
+            for launch in plan:
+                here = at
+                per_launch.append(time_cuda(lambda: kp_dist.jfa_run_launches(here, [launch]),
+                                            calls=10))
+                at = kp_dist.jfa_run_launches(at, [launch])
+            before_near = kp_dist.jfa_run_launches(state, far)
+            far_ms = time_cuda(lambda: kp_dist.jfa_run_launches(state, far))
+            near_ms = time_cuda(lambda: kp_dist.jfa_run_launches(before_near, near))
+
+            def plain_steps(start, ks):
+                for k in ks:
+                    start = kp_dist.jfa_step_plain(start, k)
+                return start
+
+            far_ks = [k for launch in far for k in launch.steps]
+            far_plain_ms = time_cuda(lambda: plain_steps(state, far_ks), runs=5)
+            near_plain_ms = time_cuda(lambda: plain_steps(before_near, near[0].steps), runs=5)
+            far_bound, far_by = jfa_bound(n, len(far_ks))
+            near_bound, near_by = jfa_bound(n, len(near[0].steps))
+            log(f"  time: ladder {ms:.4f} ms in {len(plan)} launches, plain {plain_ms:.4f} ms, "
+                f"library none, bound {bound:.4f} ms ({by}); far steps {far_ms:.4f} ms (plain "
+                f"{far_plain_ms:.4f}, bound {far_bound:.4f}), near run {near_ms:.4f} ms (plain "
+                f"{near_plain_ms:.4f}, bound {near_bound:.4f})")
+            log("  each launch alone, back to back: " + ", ".join(
+                f"{'+'.join(str(k) for k in launch.steps)}: {t:.4f}"
+                for launch, t in zip(plan, per_launch)) + " ms")
+            ladder = {"shape": f"{h}x{w}", "density": kind, "steps": len(steps),
+                      "launches": len(plan), "ladder_ms": ms, "ladder_plain_ms": plain_ms,
+                      "ladder_bound_ms": bound, "ladder_bound_by": by,
+                      "per_launch_ms": per_launch}
+            step_timings.append(dict(ladder, steps_covered=far_ks, ms=far_ms,
+                                     plain_ms=far_plain_ms, library_ms=None,
+                                     bound_ms=far_bound, bound_by=far_by))
+            near_timings.append(dict(ladder, steps_covered=list(near[0].steps), ms=near_ms,
+                                     plain_ms=near_plain_ms, library_ms=None,
+                                     bound_ms=near_bound, bound_by=near_by))
+    return ({"max_abs_err": 0, "timings": step_timings},
+            {"max_abs_err": 0, "timings": near_timings})
 
 
 def warp_library(planes, strength, k):
@@ -366,19 +474,25 @@ def kernels():
 def launch_counts() -> dict:
     blur, distance, warp = kernels()
     return {"blur": blur.BLUR_KERNEL.launches, "jfa": distance.JFA_KERNEL.launches,
+            "jfa_near": distance.JFA_NEAR_KERNEL.launches,
             "warp": warp.WARP_KERNEL.launches, "blur_block": blur.BLUR_BLOCK_KERNEL.launches,
             "warp_block": warp.WARP_BLOCK_KERNEL.launches}
+
+
+def blur_launches_by_sigma() -> dict:
+    """The blur entries' launches since the last reset, split by sigma."""
+    blur = kernels()[0]
+    return {"blur": dict(blur.BLUR_KERNEL.launches_by_key),
+            "blur_block": dict(blur.BLUR_BLOCK_KERNEL.launches_by_key)}
 
 
 def reset_counts() -> None:
     from kanter_core_tpu_torch.parallel import MESH_COUNTERS
 
     blur, distance, warp = kernels()
-    blur.BLUR_KERNEL.launches = 0
-    blur.BLUR_BLOCK_KERNEL.launches = 0
-    distance.JFA_KERNEL.launches = 0
-    warp.WARP_KERNEL.launches = 0
-    warp.WARP_BLOCK_KERNEL.launches = 0
+    for kernel in (blur.BLUR_KERNEL, blur.BLUR_BLOCK_KERNEL, distance.JFA_KERNEL,
+                   distance.JFA_NEAR_KERNEL, warp.WARP_KERNEL, warp.WARP_BLOCK_KERNEL):
+        kernel.reset_launches()
     MESH_COUNTERS.reset()
 
 
@@ -433,6 +547,7 @@ class Session:
                 where = "" if self.tp.mesh is None else " mesh"
                 log(f"slice{where} {n}x{n} {label} read {name}: {ms:.3f} ms wall")
         self.counts.append(launch_counts())
+        self.by_sigma = blur_launches_by_sigma()
         if self.tp.mesh is not None:
             from kanter_core_tpu_torch.parallel import MESH_COUNTERS
 
@@ -577,8 +692,9 @@ def blur_block_phase(kp_blur, mesh) -> dict:
 
     rng = np.random.default_rng(4)
     n = mesh.n
-    cases = [(CANVAS, CANVAS, 0.8), (CANVAS, CANVAS, 1.2), (CANVAS, CANVAS, 6.0),
-             (4 * 19, 411, 6.0), (4 * 18, 411, 6.0), (4 * 18, 1, 6.0), (4 * 3, 411, 0.8)]
+    cases = [(CANVAS, CANVAS, sigma) for sigma in main_path_sigmas()]
+    cases += [(4 * 19, 411, 6.0), (4 * 18, 411, 6.0), (4 * 18, 1, 6.0), (4 * 3, 411, 0.8),
+              (4 * 65, 129, 1.2), (4 * 64, 128, 6.0), (4 * 63, 3, 6.0), (4 * 40, 50, 12.0)]
     max_err = 0.0
     timings = []
     for h, w, sigma in cases:
@@ -593,6 +709,15 @@ def blur_block_phase(kp_blur, mesh) -> dict:
             torch.cuda.synchronize()
             bad += mismatches(got, want)
             max_err = max(max_err, float((got - want).abs().max().item()))
+        # the same blocks with halos that are views into the plane: rows of
+        # 411 or 3 floats put them off every 16-byte boundary
+        bh = h // n
+        for j in range(1, n - 1):
+            views = (x[j * bh:(j + 1) * bh], x[j * bh - r:j * bh], x[(j + 1) * bh:(j + 1) * bh + r])
+            got = kp_blur.blur_block_cuda(*views, sigma)
+            want = kp_blur.blur_block_plain(*views, sigma)
+            torch.cuda.synchronize()
+            bad += mismatches(got, want)
         sharded = torch.cat([b.to(x.device) for b in kp_blur.blur_plane_sharded(sp, sigma).bands])
         dense = kp_blur.blur_plane_cuda(x, sigma)
         torch.cuda.synchronize()
@@ -606,23 +731,24 @@ def blur_block_phase(kp_blur, mesh) -> dict:
         band, (top, bot) = sp.bands[0], sp.ring_halos(r)[0]  # on the first device
         bh = band.shape[0]
         ms = time_cuda(lambda: kp_blur.blur_block_cuda(band, top, bot, sigma))
+        device_ms = time_cuda(lambda: kp_blur.blur_block_cuda(band, top, bot, sigma), calls=10)
         plain_ms = time_cuda(lambda: kp_blur.blur_block_plain(band, top, bot, sigma))
         library_ms = time_cuda(lambda: blur_block_library(band, top, bot, taps))
         lib_err = float((blur_block_library(band, top, bot, taps)
                          - kp_blur.blur_block_plain(band, top, bot, sigma)).abs().max().item())
-        bound, by = bound_ms(8.0 * bh * w + 2 * r * w * 4, 2 * 2 * len(taps) * bh * w, FP32_FLOPS)
+        bound, by = blur_bound(bh * w, 2 * r * w * 4, len(taps))
         s_ms = time_cuda(lambda: kp_blur.blur_plane_sharded(sp, sigma))
         s_plain_ms = time_cuda(lambda: blur_sharded_plain(kp_blur, sp, sigma))
         s_library_ms = time_cuda(lambda: blur_library(x, taps))
-        s_bound, s_by = bound_ms(8.0 * h * w + n * 2 * r * w * 4, 2 * 2 * len(taps) * h * w,
-                                 FP32_FLOPS)
-        log(f"  time: block {bh}x{w} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        s_bound, s_by = blur_bound(h * w, n * 2 * r * w * 4, len(taps))
+        log(f"  time: block {bh}x{w} kernel {ms:.4f} ms ({device_ms:.4f} ms back to back), "
+            f"plain {plain_ms:.4f} ms, library "
             f"{library_ms:.4f} ms (max |library − plain| {lib_err:.3g}), bound {bound:.4f} ms "
             f"({by}); sharded {h}x{w} over {n}: {s_ms:.4f} ms with its exchange, plain "
             f"{s_plain_ms:.4f} ms, library {s_library_ms:.4f} ms, bound {s_bound:.4f} ms ({s_by})")
         timings.append({"shape": f"{bh}x{w}", "sigma": sigma, "taps": len(taps), "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-                        "bound_by": by,
+                        "device_ms": device_ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
                         "sharded": {"shape": f"{h}x{w}", "shards": n, "ms": s_ms,
                                     "plain_ms": s_plain_ms, "library_ms": s_library_ms,
                                     "bound_ms": s_bound, "bound_by": s_by}})
@@ -736,7 +862,7 @@ def warp_block_phase(kp_warp, mesh) -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
-def check_mesh_run(label, single, sharded, steps) -> None:
+def check_mesh_run(label, single, sharded) -> None:
     """The mesh run's launch and gather counts against the single-device
     run of the same sequence: per read group, the block kernels 4× (one
     launch per shard) the dense kernels' counts, the dense blur and warp
@@ -749,14 +875,43 @@ def check_mesh_run(label, single, sharded, steps) -> None:
         raise AssertionError(f"mesh {label}: {len(sharded.counts)} read groups, want "
                              f"{len(single.counts)}")
     for one, many, mc in zip(single.counts, sharded.counts, sharded.mesh_counts):
-        want = {"blur": 0, "warp": 0, "jfa": one["jfa"], "blur_block": n * one["blur"],
-                "warp_block": n * one["warp"]}
+        want = {"blur": 0, "warp": 0, "jfa": one["jfa"], "jfa_near": one["jfa_near"],
+                "blur_block": n * one["blur"], "warp_block": n * one["warp"]}
         if many != want:
             raise AssertionError(f"mesh {label}: launches {many}, want {want}")
-        want_g = {"distance": many["jfa"] // steps, "blur_gate": 0, "warp_gate": 0,
+        # a ladder ends in exactly one near launch
+        want_g = {"distance": many["jfa_near"], "blur_gate": 0, "warp_gate": 0,
                   "resize": 0, "export": mc["reads"], "host": mc["planes_read"]}
         if mc["gathers"] != want_g:
             raise AssertionError(f"mesh {label}: gathers {mc['gathers']}, want {want_g}")
+
+
+def gap_ranking(entries) -> list:
+    """For each kernel: over the four sequences, launches × (ms − bound) in
+    ms, the time a perfect kernel would give back; largest first. A blur
+    launch takes the timing of its own sigma, a far JFA launch the mean far
+    step, the near launch the near run."""
+    ranking = []
+    for e in entries:
+        by_path = {}
+        for path, launches in e["launches_by_path"].items():
+            by_sigma = e.get("launches_by_sigma", {}).get(path)
+            if by_sigma is None:
+                main = e["timings"][-1] if e["name"].startswith("kanter_jfa") else None
+                ms, bound = e["ms"], e["bound_ms"]
+                if main is not None and e["name"] == "kanter_jfa_step_i32":
+                    per = len(main["steps_covered"])
+                    ms, bound = ms / per, bound / per
+                by_path[path] = launches * (ms - bound)
+                continue
+            timed = {t["sigma"]: t for t in e["timings"]}
+            by_path[path] = sum(
+                count * (timed[sigma]["ms"] - timed[sigma]["bound_ms"])
+                for sigma, count in by_sigma.items()
+            )
+        ranking.append({"name": e["name"], "gap_ms_by_path": by_path,
+                        "gap_ms": sum(by_path.values())})
+    return sorted(ranking, key=lambda r: -r["gap_ms"])
 
 
 def main() -> int:
@@ -784,6 +939,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     build_phase([kp_blur.BLUR_KERNEL, kp_dist.JFA_KERNEL, kp_warp.WARP_KERNEL])
     kp_blur.BLUR_BLOCK_KERNEL.entry()
+    kp_dist.JFA_NEAR_KERNEL.entry()
     kp_warp.WARP_BLOCK_KERNEL.entry()
 
     def phase_done(name):
@@ -796,7 +952,7 @@ def main() -> int:
 
     # 3. kernels vs plain
     blur = blur_phase(kp_blur)
-    jfa = jfa_phase(kp_dist)
+    jfa, jfa_near = jfa_phase(kp_dist)
     warp = warp_phase(kp_warp)
     phase_done("kernels")
 
@@ -812,22 +968,26 @@ def main() -> int:
         raise AssertionError("the Value edit re-ran a Blur node")
     if sigma_edit <= value_edit:
         raise AssertionError("the sigma edit did not launch the blur kernel")
-    pbr_path = pbr_counts[-1]
+    pbr_path, pbr_sigmas = pbr_counts[-1], pbr.by_sigma
 
     # 5. the flagship at full size, counters from 0
     flag = drive_flagship("cuda", 4096, timed=True)
     flag_counts = flag.counts
     log(f"flagship launches after each read (render, value, distance, warp edit): {flag_counts}")
-    steps = len(kp_dist._jfa_steps(4096, 4096))
-    want_jfa = [steps, steps, 2 * steps, 2 * steps]
-    if [c["jfa"] for c in flag_counts] != want_jfa:
-        raise AssertionError(f"JFA launches {[c['jfa'] for c in flag_counts]}, want {want_jfa}")
+    plan = kp_dist.jfa_launch_plan(CANVAS, CANVAS)
+    ladders = [1, 1, 2, 2]  # Distance ran on the render and on its own edit
+    for key, entry in (("jfa", "step"), ("jfa_near", "near")):
+        per_ladder = sum(1 for launch in plan if launch.entry == entry)
+        want_jfa = [per_ladder * n for n in ladders]
+        if per_ladder < 1 or [c[key] for c in flag_counts] != want_jfa:
+            raise AssertionError(f"{key} launches {[c[key] for c in flag_counts]}, the plan "
+                                 f"gives {want_jfa}")
     if [c["warp"] for c in flag_counts] != [1, 2, 3, 4]:
         raise AssertionError(f"warp launches {[c['warp'] for c in flag_counts]}, want [1, 2, 3, 4]")
     b = [c["blur"] for c in flag_counts]
     if not (b[0] == 7 and b[1] == 14 and b[2] == 21 and b[3] == 21):
         raise AssertionError(f"blur launches {b}, want [7, 14, 21, 21] (3 AO + 4 RGBA planes)")
-    flag_path = flag_counts[-1]
+    flag_path, flag_sigmas = flag_counts[-1], flag.by_sigma
     phase_done("single-device slices")
 
     # 6. card vs CPU at 1024²
@@ -853,12 +1013,12 @@ def main() -> int:
     # 8. the mesh slice at full size against the single-device run, counters
     # from 0 before each sequence
     mesh_pbr = drive_pbr("cuda", 4096, timed=True, mesh=mesh)
-    check_mesh_run("pbr", pbr, mesh_pbr, steps)
-    mesh_pbr_path = mesh_pbr.counts[-1]
+    check_mesh_run("pbr", pbr, mesh_pbr)
+    mesh_pbr_path, mesh_pbr_sigmas = mesh_pbr.counts[-1], mesh_pbr.by_sigma
     compare_runs("pbr", mesh_pbr.results, pbr.results, "mesh vs single device")
     mesh_flag = drive_flagship("cuda", 4096, timed=True, mesh=mesh)
-    check_mesh_run("flagship", flag, mesh_flag, steps)
-    mesh_flag_path = mesh_flag.counts[-1]
+    check_mesh_run("flagship", flag, mesh_flag)
+    mesh_flag_path, mesh_flag_sigmas = mesh_flag.counts[-1], mesh_flag.by_sigma
     compare_runs("flagship", mesh_flag.results, flag.results, "mesh vs single device")
     del pbr, flag, mesh_pbr, mesh_flag
     phase_done("mesh slices")
@@ -871,41 +1031,55 @@ def main() -> int:
                  drive_flagship("cpu", 1024, mesh=cpu_mesh).results, "mesh card vs mesh cpu")
     phase_done("mesh card vs cpu")
 
-    def entry(name, source, replaces, launches, phase, main, by_path):
-        return {
+    def by_path(key):
+        return {"pbr": pbr_path[key], "flagship": flag_path[key],
+                "mesh_pbr": mesh_pbr_path[key], "mesh_flagship": mesh_flag_path[key]}
+
+    def by_sigma(key):
+        return {"pbr": pbr_sigmas[key], "flagship": flag_sigmas[key],
+                "mesh_pbr": mesh_pbr_sigmas[key], "mesh_flagship": mesh_flag_sigmas[key]}
+
+    def entry(name, source, replaces, launches, phase, main, key):
+        e = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "launches_by_path": by_path,
+            "launches": launches, "launches_by_path": by_path(key),
             "max_abs_err": phase["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "timings": phase["timings"],
         }
+        if key in ("blur", "blur_block"):
+            e["launches_by_sigma"] = by_sigma(key)
+        return e
 
-    def by_path(key):
-        return {"pbr": pbr_path[key], "flagship": flag_path[key],
-                "mesh_pbr": mesh_pbr_path[key], "mesh_flagship": mesh_flag_path[key]}
-
-    log(json.dumps({"kernels": [
+    entries = [
         entry("kanter_blur_wrap_f32", "kanter_core_tpu_torch/csrc/blur.cu",
               "kanter_core_tpu/ops/pallas_blur.py:77",
               pbr_path["blur"] + flag_path["blur"], blur,
-              next(t for t in blur["timings"] if t["sigma"] == 6.0), by_path("blur")),
+              next(t for t in blur["timings"] if t["sigma"] == 6.0), "blur"),
         entry("kanter_jfa_step_i32", "kanter_core_tpu_torch/csrc/jfa.cu",
               "kanter_core_tpu/ops/pallas_distance.py:90",
-              flag_path["jfa"], jfa, jfa["timings"][-1], by_path("jfa")),
+              flag_path["jfa"], jfa, jfa["timings"][-1], "jfa"),
+        entry("kanter_jfa_near_i32", "kanter_core_tpu_torch/csrc/jfa.cu",
+              "kanter_core_tpu/ops/pallas_distance.py:90",
+              flag_path["jfa_near"], jfa_near, jfa_near["timings"][-1], "jfa_near"),
         entry("kanter_warp_bilinear_f32", "kanter_core_tpu_torch/csrc/warp.cu",
               "kanter_core_tpu/ops/pallas_warp.py:147",
-              flag_path["warp"], warp, warp["timings"][0], by_path("warp")),
+              flag_path["warp"], warp, warp["timings"][0], "warp"),
         entry("kanter_blur_block_f32", "kanter_core_tpu_torch/csrc/blur.cu",
               "kanter_core_tpu/ops/pallas_blur.py:419",
               mesh_pbr_path["blur_block"] + mesh_flag_path["blur_block"], blur_block,
-              next(t for t in blur_block["timings"] if t["sigma"] == 6.0),
-              by_path("blur_block")),
+              next(t for t in blur_block["timings"] if t["sigma"] == 6.0), "blur_block"),
         entry("kanter_warp_block_f32", "kanter_core_tpu_torch/csrc/warp.cu",
               "kanter_core_tpu/ops/pallas_warp.py:306",
               mesh_flag_path["warp_block"], warp_block, warp_block["timings"][0],
-              by_path("warp_block")),
-    ]}))
+              "warp_block"),
+    ]
+    for e in entries:
+        if e["launches"] < 1:
+            raise AssertionError(f"{e['name']} was not launched on the main path")
+    log(json.dumps({"gap_ranking": gap_ranking(entries)}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -80,7 +80,8 @@ class CudaKernel:
     shared library with a plain C entry point `symbol` on first use and
     loaded through ctypes, and the count of its launches (`launches`: the
     wrapper calls `count_launch` once per launch of the kernel, and
-    nowhere else)."""
+    nowhere else; `launches_by_key` splits the count by the key the wrapper
+    names, a blur's sigma or a jump-flood step)."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
         self.name = name
@@ -90,6 +91,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.launches_by_key: dict = {}
         self.path = None  # the built library; its compiler output is path + ".log"
         self._fn = None
         self._lock = threading.Lock()
@@ -108,6 +110,13 @@ class CudaKernel:
                 self._fn = fn
             return self._fn
 
-    def count_launch(self) -> None:
+    def count_launch(self, key=None) -> None:
         with self._lock:
             self.launches += 1
+            if key is not None:
+                self.launches_by_key[key] = self.launches_by_key.get(key, 0) + 1
+
+    def reset_launches(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.launches_by_key = {}

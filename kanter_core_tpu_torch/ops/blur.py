@@ -9,6 +9,8 @@ Port of `kanter_core_tpu/ops/blur.py`. Two implementations of one function:
   with nvcc into a shared library with a plain C interface on first use and
   called through ctypes. It replaces the JAX package's Pallas kernel
   (`pallas_blur.blur_pallas`) and is bit-identical to the plain version.
+  One launch blurs the plane tile by tile in shared memory, both passes;
+  `blur_tile_plan` picks the tile for a radius and a shape on the host.
 
 `blur_plane` dispatches on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor the kernel (which raises if it cannot build or
@@ -32,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -91,32 +94,97 @@ def blur_block_plain(block: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
     return _blur_axis0(acc.t(), taps).t().contiguous()
 
 
-class CudaBlurKernel(CudaKernel):
-    """The `csrc/blur.cu` kernel, with its tap tables on each device."""
-
-    def __init__(self):
-        super().__init__(
-            "blur", "kanter_blur_wrap_f32",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-        )
-        self._taps: dict = {}  # (sigma, device) → f32 tap tensor on the device
-
-    def device_taps(self, sigma: float, device: torch.device) -> torch.Tensor:
-        key = (round(float(sigma), 6), str(device))
-        with self._lock:
-            taps = self._taps.get(key)
-            if taps is None:
-                taps = torch.from_numpy(_taps_for(sigma)).to(device)
-                self._taps[key] = taps
-            return taps
+# what one block may take of an SM's shared memory (232,448 bytes), and the
+# share the plan aims for, so that two blocks fit on an SM beside the 1 KiB
+# the system keeps for each and one block's staging overlaps the other's
+# arithmetic
+BLUR_SMEM_MAX = 232448
+BLUR_SMEM_TARGET = 113 * 1024
+BLUR_STRIP = 8  # outputs per thread in either pass: tiles come in multiples
+BLUR_TILE_MAX_RADIUS = 31  # 63 taps; wider blurs take the kernel's two-pass form
 
 
-BLUR_KERNEL = CudaBlurKernel()
+class BlurTilePlan(NamedTuple):
+    """How `csrc/blur.cu` tiles one plane: output tiles of `th` × `tw`
+    pixels, `tiles_y` × `tiles_x` of them, each staging a window of
+    `th + 2r` rows (and `tw` columns plus the radius rounded up to 4 on
+    either side) and a `th × (tw + 2r)` intermediate in `smem_bytes` of
+    shared memory; `general` where a window can pass the plane's far edge
+    twice, so staging wraps with a remainder (for a row block only the
+    width counts: its rows come with their halos and never wrap)."""
+
+    th: int
+    tw: int
+    tiles_y: int
+    tiles_x: int
+    smem_bytes: int
+    general: bool
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def blur_tile_smem(radius: int, th: int, tw: int) -> int:
+    """Shared memory of one tile, as the kernel lays it out: the window's
+    rows plus one spare and the intermediate's rows, at a pitch of the
+    staged columns (the tile and the radius rounded up to 4 on either side,
+    so that the window starts on a 16-byte boundary) plus 4 spare."""
+    pitch = tw + 2 * _round_up(radius, 4) + 4
+    return (2 * th + 2 * radius + 1) * pitch * 4
+
+
+@functools.lru_cache(maxsize=256)
+def blur_tile_plan(radius: int, h: int, w: int) -> BlurTilePlan:
+    """The tile for a radius and a plane (or row block) of `h` × `w`: 128
+    columns (16 at least, no wider than the plane needs), and the tallest
+    multiple of 8 rows up to 64 (no taller than the plane needs) whose shared
+    memory stays within `BLUR_SMEM_TARGET`; where that leaves fewer than 32
+    rows, up to 32 within `BLUR_SMEM_MAX`."""
+    if not (0 <= radius <= BLUR_TILE_MAX_RADIUS and h >= 1 and w >= 1):
+        raise ValueError(f"no blur tile for radius {radius} on {h}x{w}")
+    tw = max(2 * BLUR_STRIP, min(128, _round_up(w, BLUR_STRIP)))
+    need = _round_up(h, BLUR_STRIP)
+    th = min(64, need)
+    while th > BLUR_STRIP and blur_tile_smem(radius, th, tw) > BLUR_SMEM_TARGET:
+        th -= BLUR_STRIP
+    if th < min(32, need):
+        # a wide radius: rather one block per SM than a tile much shorter
+        # than its halo
+        th = min(32, need)
+        while th > BLUR_STRIP and blur_tile_smem(radius, th, tw) > BLUR_SMEM_MAX:
+            th -= BLUR_STRIP
+    return BlurTilePlan(
+        th, tw, -(-h // th), -(-w // tw), blur_tile_smem(radius, th, tw),
+        th + radius > h or tw + _round_up(radius, 4) > w,
+    )
+
+
+# (in, out, host taps, ntaps, h, w, th, tw, scratch, device taps, stream)
+BLUR_KERNEL = CudaKernel(
+    "blur", "kanter_blur_wrap_f32",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
+)
 # the block entry of the same library; its own launch count
+# (top, block, bot, out, host taps, ntaps, block_h, w, th, tw, scratch,
+#  device taps, stream)
 BLUR_BLOCK_KERNEL = CudaKernel(
     "blur", "kanter_blur_block_f32",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
 )
+
+
+def _launch_args(taps: np.ndarray, h: int, w: int, like: torch.Tensor) -> tuple:
+    """(th, tw, scratch, device taps, tensors to keep alive) for one launch:
+    the tile of `blur_tile_plan` up to `BLUR_TILE_MAX_RADIUS`; above it the
+    two-pass form's scratch plane and its taps in device memory."""
+    radius = (len(taps) - 1) // 2
+    if radius <= BLUR_TILE_MAX_RADIUS:
+        plan = blur_tile_plan(radius, h, w)
+        return plan.th, plan.tw, None, None, ()
+    scratch = torch.empty_like(like)
+    taps_dev = torch.from_numpy(taps).to(like.device)
+    return 0, 0, scratch.data_ptr(), taps_dev.data_ptr(), (scratch, taps_dev)
 
 
 def _check_cuda_plane(t: torch.Tensor, what: str, shape=None) -> None:
@@ -139,20 +207,20 @@ def blur_plane_cuda(plane: torch.Tensor, sigma: float) -> torch.Tensor:
     _check_cuda_plane(plane, "the plane")
     h, w = plane.shape
     kernel = BLUR_KERNEL.entry()
-    taps = BLUR_KERNEL.device_taps(sigma, plane.device)
-    scratch = torch.empty_like(plane)
+    taps = _taps_for(sigma)  # host memory: the entry hands them over by value
     out = torch.empty_like(plane)
     with torch.cuda.device(plane.device):
+        th, tw, scratch, taps_dev, _keep = _launch_args(taps, h, w, plane)
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         rc = kernel(
-            plane.data_ptr(), scratch.data_ptr(), out.data_ptr(), taps.data_ptr(),
-            len(taps), h, w, stream,
+            plane.data_ptr(), out.data_ptr(), taps.ctypes.data, len(taps), h, w,
+            th, tw, scratch, taps_dev, stream,
         )
     if rc != 0:
         raise TexProError(
             ErrorKind.NODE_PROCESSING, f"blur kernel launch failed: CUDA error {rc}"
         )
-    BLUR_KERNEL.count_launch()
+    BLUR_KERNEL.count_launch(round(float(sigma), 6))
     return out
 
 
@@ -176,20 +244,19 @@ def blur_block_cuda(block: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
             f"({block_h} rows) hold at least {r} rows",
         )
     kernel = BLUR_BLOCK_KERNEL.entry()
-    taps_t = BLUR_KERNEL.device_taps(sigma, block.device)
-    scratch = torch.empty_like(block)
     out = torch.empty_like(block)
     with torch.cuda.device(block.device):
+        th, tw, scratch, taps_dev, _keep = _launch_args(taps, block_h, w, block)
         stream = torch.cuda.current_stream(block.device).cuda_stream
         rc = kernel(
-            top.data_ptr(), block.data_ptr(), bot.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), taps_t.data_ptr(), len(taps), block_h, w, stream,
+            top.data_ptr(), block.data_ptr(), bot.data_ptr(), out.data_ptr(),
+            taps.ctypes.data, len(taps), block_h, w, th, tw, scratch, taps_dev, stream,
         )
     if rc != 0:
         raise TexProError(
             ErrorKind.NODE_PROCESSING, f"blur block kernel launch failed: CUDA error {rc}"
         )
-    BLUR_BLOCK_KERNEL.count_launch()
+    BLUR_BLOCK_KERNEL.count_launch(round(float(sigma), 6))
     return out
 
 

@@ -9,9 +9,11 @@ The nearest-seed state is one packed i32 plane (`y << 16 | x`, sentinel
 1 once more. Two implementations of the propagation:
 
 - `jfa_propagate_plain`: plain torch, `distance_plane`'s roll/select fold;
-- `jfa_propagate_cuda`: one launch per step of the hand-written kernel
-  `csrc/jfa.cu`, which replaces the JAX package's Pallas step kernel
-  (`pallas_distance._jfa_step_call`). Integer-only, so bit-identical.
+- `jfa_propagate_cuda`: the hand-written kernels of `csrc/jfa.cu`, which
+  replace the JAX package's Pallas step kernel
+  (`pallas_distance._jfa_step_call`): one launch per far step, then one
+  launch for the run of near steps (8, 4, 2, 1, 1), as `jfa_launch_plan`
+  lays the ladder out. Exact arithmetic throughout, so bit-identical.
 
 `jfa_propagate` takes the plain version for a CPU tensor and the kernel for
 a CUDA tensor (which raises if it cannot build or launch); there is no
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -114,16 +117,66 @@ def jfa_propagate_plain(state: torch.Tensor) -> torch.Tensor:
     return state
 
 
+# a far step: (in, out, k, h, w, stream)
 JFA_KERNEL = CudaKernel(
     "jfa", "kanter_jfa_step_i32",
     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 )
+# a fused run of near steps, the second entry of the same library, with its
+# own launch count: (in, out, host steps, n, h, w, th, tw, stream)
+JFA_NEAR_KERNEL = CudaKernel(
+    "jfa", "kanter_jfa_near_i32",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+)
+
+JFA_NEAR_HALO = 16  # the most the fused near steps may sum to (8, 4, 2, 1, 1)
+JFA_NEAR_TILE = 64  # rows and columns of a near tile
+
+
+class JfaLaunch(NamedTuple):
+    """One launch of a ladder: `entry` is "step" (one far step,
+    `kanter_jfa_step_i32`) or "near" (the fused run, `kanter_jfa_near_i32`),
+    `steps` the ladder's steps it covers; a near launch works on tiles of
+    `th` × `tw` pixels with a halo of the steps' sum."""
+
+    entry: str
+    steps: tuple
+    th: int = 0
+    tw: int = 0
+
+
+def jfa_launch_plan(h: int, w: int) -> list:
+    """The launches of one ladder on an `h` × `w` plane, in order: the
+    longest tail of `_jfa_steps` that sums to at most `JFA_NEAR_HALO` is one
+    fused near launch, every step before it a far launch of its own."""
+    steps = _jfa_steps(h, w)
+    cut = len(steps)
+    while cut > 0 and sum(steps[cut - 1:]) <= JFA_NEAR_HALO:
+        cut -= 1
+    near = JfaLaunch("near", tuple(steps[cut:]), min(JFA_NEAR_TILE, h),
+                     max(2, min(JFA_NEAR_TILE, w)))
+    return [JfaLaunch("step", (k,)) for k in steps[:cut]] + [near]
+
+
+def jfa_step_form(k: int, h: int, w: int) -> str:
+    """Which kernel `kanter_jfa_step_i32` picks for a far step: "lattice"
+    where the step, reduced along each axis, divides both extents, else
+    "pixel" (one pixel per thread)."""
+    ky, kx = k % h, k % w
+    return "lattice" if ky and kx and h % ky == 0 and w % kx == 0 else "pixel"
 
 
 def jfa_propagate_cuda(state: torch.Tensor) -> torch.Tensor:
-    """The whole ladder through the CUDA step kernel, one launch per step,
-    on the current stream. Raises if `state` is not a contiguous 2-D int32
-    CUDA tensor or the kernel does not build or launch."""
+    """The whole ladder through the CUDA kernels, one launch per entry of
+    `jfa_launch_plan`, on the current stream. Raises if `state` is not a
+    contiguous 2-D int32 CUDA tensor or a kernel does not build or launch."""
+    launches = jfa_launch_plan(*state.shape) if state.dim() == 2 else []
+    return jfa_run_launches(state, launches)
+
+
+def jfa_run_launches(state: torch.Tensor, launches) -> torch.Tensor:
+    """The given launches of a plan, in order, from `state` (which is never
+    written) through at most two work buffers."""
     if not (
         state.is_cuda and state.dtype == torch.int32 and state.dim() == 2
         and state.is_contiguous()
@@ -134,19 +187,29 @@ def jfa_propagate_cuda(state: torch.Tensor) -> torch.Tensor:
             f"{state.dtype} {tuple(state.shape)} on {state.device}",
         )
     h, w = state.shape
-    kernel = JFA_KERNEL.entry()
+    step_entry = JFA_KERNEL.entry()
+    near_entry = JFA_NEAR_KERNEL.entry()
     src = state
     dst = torch.empty_like(state)
     spare = None  # the caller's `state` is never written
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        for k in _jfa_steps(h, w):
-            rc = kernel(src.data_ptr(), dst.data_ptr(), k, h, w, stream)
+        for launch in launches:
+            if launch.entry == "near":
+                ks = (ctypes.c_int * len(launch.steps))(*launch.steps)
+                rc = near_entry(src.data_ptr(), dst.data_ptr(), ks, len(launch.steps), h, w,
+                                launch.th, launch.tw, stream)
+                kernel = JFA_NEAR_KERNEL
+            else:
+                (k,) = launch.steps
+                rc = step_entry(src.data_ptr(), dst.data_ptr(), k, h, w, stream)
+                kernel = JFA_KERNEL
             if rc != 0:
                 raise TexProError(
-                    ErrorKind.NODE_PROCESSING, f"JFA kernel launch failed: CUDA error {rc}"
+                    ErrorKind.NODE_PROCESSING,
+                    f"JFA kernel launch failed ({launch}): CUDA error {rc}",
                 )
-            JFA_KERNEL.count_launch()
+            kernel.count_launch(launch.steps)
             if spare is None:
                 spare = torch.empty_like(state)
                 src, dst = dst, spare

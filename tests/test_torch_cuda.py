@@ -3,8 +3,8 @@ machine without one). Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-The CUDA kernels (blur, the JFA step ladder, the warp gather, and the
-blur and warp block kernels of the mesh route) must be bit-identical to
+The CUDA kernels (the tiled blur, the JFA far steps and fused near run, the
+warp gather, and the blur and warp block kernels of the mesh route) must be bit-identical to
 their plain torch versions, and the PBR slice and the flagship must give
 the same f32 planes and u8 exports on the card as on the CPU, and over a
 four-shard mesh on the card as on one device.
@@ -30,9 +30,15 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize(
-    "h,w,sigma", [(256, 256, 0.8), (256, 256, 6.0), (1, 1, 6.0), (5, 300, 6.0), (97, 411, 1.5)]
-)
+@pytest.mark.parametrize("h,w,sigma", [
+    (256, 256, 0.8), (256, 256, 6.0), (1, 1, 6.0), (5, 300, 6.0), (97, 411, 1.5),
+    # one below, at and one above a tile edge (64 rows, 128 columns)
+    (63, 127, 1.2), (64, 128, 1.2), (65, 129, 1.2), (63, 127, 6.0), (64, 128, 6.0), (65, 129, 6.0),
+    # widths without 16-byte alignment; 37 taps on 5 rows; a radius above the tile's height
+    (200, 1, 6.0), (200, 3, 0.8), (200, 411, 4.0), (5, 4096, 6.0), (8, 300, 6.0), (40, 300, 6.0),
+    # the widest tiled radius (63 taps) and the two-pass form above it
+    (200, 333, 10.3), (31, 31, 10.3), (200, 333, 10.4), (40, 50, 30.0),
+])
 def test_cuda_blur_bit_identical_to_plain(card, h, w, sigma):
     x = torch.from_numpy(np.random.default_rng(h + w).random((h, w), dtype=np.float32)).to(card)
     before = blur.BLUR_KERNEL.launches
@@ -40,6 +46,24 @@ def test_cuda_blur_bit_identical_to_plain(card, h, w, sigma):
     assert blur.BLUR_KERNEL.launches == before + 1
     want = blur.blur_plane_plain(x, sigma)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("sigma", [0.8, 6.0])
+def test_cuda_blur_takes_rows_off_the_16_byte_boundary(card, sigma):
+    """A width that is a multiple of 4 on storage that starts 4 bytes past a
+    16-byte boundary: the kernel must fall back to 4-byte copies, for the
+    plane and for a block with such halos."""
+    h, w = 96, 128
+    flat = torch.from_numpy(np.random.default_rng(7).random(h * w + 1, dtype=np.float32)).to(card)
+    x = flat[1:].view(h, w)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    got = blur.blur_plane_cuda(x, sigma)
+    assert torch.equal(got.view(torch.int32), blur.blur_plane_plain(x, sigma).view(torch.int32))
+    r = (len(blur.gaussian_taps(sigma)) - 1) // 2
+    views = (x[32:64], x[32 - r:32], x[64:64 + r])
+    got = blur.blur_block_cuda(*views, sigma)
+    assert torch.equal(got.view(torch.int32),
+                       blur.blur_block_plain(*views, sigma).view(torch.int32))
 
 
 def _render(device, n=192, mesh=None):
@@ -80,14 +104,22 @@ def _mask(h, w, density, seed):
 @pytest.mark.parametrize("h,w,density", [
     (256, 256, 1e-3), (256, 256, 0.2), (256, 256, 0.0), (256, 256, 1.0),
     (1, 1, 1.0), (5, 300, 0.01), (97, 411, 0.01), (300, 1, 0.05), (33, 2049, 0.001),
+    # lattices of odd length; planes smaller than the fused halo; k > H; a
+    # plane past the f32 metric (the i32 one)
+    (96, 160, 0.01), (10, 12, 0.1), (10, 12, 0.0), (3, 7, 1.0), (16, 16, 0.05), (5, 4096, 0.01),
+    (70, 6000, 0.001), (6000, 5800, 0.0001),
 ])
 def test_cuda_jfa_bit_identical_to_plain(card, h, w, density):
     from kanter_core_tpu_torch.ops import distance
 
     state = distance.pack_seeds(_mask(h, w, density, h + w).to(card))
-    before = distance.JFA_KERNEL.launches
+    before = (distance.JFA_KERNEL.launches, distance.JFA_NEAR_KERNEL.launches)
     got = distance.jfa_propagate(state)
-    assert distance.JFA_KERNEL.launches == before + len(distance._jfa_steps(h, w))
+    plan = distance.jfa_launch_plan(h, w)
+    far = sum(1 for launch in plan if launch.entry == "step")
+    assert (distance.JFA_KERNEL.launches, distance.JFA_NEAR_KERNEL.launches) == (
+        before[0] + far, before[1] + 1)
+    assert [k for launch in plan for k in launch.steps] == distance._jfa_steps(h, w)
     want = distance.jfa_propagate_plain(state)
     assert torch.equal(got, want)
 
@@ -100,6 +132,30 @@ def test_cuda_jfa_tie_storm_bit_identical_to_plain(card):
     mask[1::2, 1::2] = 1.0
     state = distance.pack_seeds(mask.to(card))
     assert torch.equal(distance.jfa_propagate_cuda(state), distance.jfa_propagate_plain(state))
+
+
+@pytest.mark.parametrize("th,tw", [(16, 16), (33, 70), (1, 2), (128, 128)])
+def test_cuda_jfa_near_run_on_any_tile_equals_separate_steps(card, th, tw):
+    """The fused near entry alone, on tiles other than the planned one."""
+    from kanter_core_tpu_torch.ops import distance
+
+    state = distance.pack_seeds(_mask(97, 411, 0.02, 5).to(card))
+    steps = (8, 4, 2, 1, 1)
+    got = distance.jfa_run_launches(state, [distance.JfaLaunch("near", steps, th, tw)])
+    want = state
+    for k in steps:
+        want = distance.jfa_step_plain(want, k)
+    assert torch.equal(got, want)
+
+
+def test_cuda_jfa_never_writes_the_callers_state(card):
+    from kanter_core_tpu_torch.ops import distance
+
+    state = distance.pack_seeds(_mask(256, 256, 0.01, 1).to(card))
+    keep = state.clone()
+    distance.jfa_propagate_cuda(state)
+    torch.cuda.synchronize()
+    assert torch.equal(state, keep)
 
 
 @pytest.mark.parametrize("h,w", [(256, 256), (1, 1), (97, 411), (300, 1)])
@@ -173,6 +229,8 @@ def test_warp_non_finite_intensity_card_vs_cpu(card, intensity):
 @pytest.mark.parametrize("h,w,sigma,n", [
     (256, 256, 0.8, 4), (256, 256, 6.0, 4), (76, 411, 6.0, 4),
     (36, 1, 6.0, 2),  # blocks of exactly the radius, one column
+    (260, 129, 1.2, 4), (256, 128, 6.0, 4), (252, 3, 6.0, 4),  # around a tile edge; 3 columns
+    (160, 50, 12.0, 4),  # 73 taps: the two-pass form
 ])
 def test_cuda_blur_block_bit_identical_to_plain(card, h, w, sigma, n):
     x = torch.from_numpy(np.random.default_rng(h + w).random((h, w), dtype=np.float32)).to(card)
@@ -186,6 +244,14 @@ def test_cuda_blur_block_bit_identical_to_plain(card, h, w, sigma, n):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     whole = torch.cat(blur.blur_plane(sp, sigma).bands)
     assert torch.equal(whole.view(torch.int32), blur.blur_plane_cuda(x, sigma).view(torch.int32))
+    # halos that are views into the plane, off every 16-byte boundary when
+    # the width is odd
+    bh = h // n
+    for j in range(1, n - 1):
+        views = (x[j * bh:(j + 1) * bh], x[j * bh - r:j * bh], x[(j + 1) * bh:(j + 1) * bh + r])
+        got = blur.blur_block_cuda(*views, sigma)
+        assert torch.equal(got.view(torch.int32),
+                           blur.blur_block_plain(*views, sigma).view(torch.int32))
 
 
 @pytest.mark.parametrize("payload,n", [((37.0, 5.0), 4), ((90.0, 64.0), 2), ((213.0, 2.0), 4)])
