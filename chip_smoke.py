@@ -32,8 +32,8 @@ Phases, each of which raises (exit code != 0) on failure:
      it;
    - Warp of 4096² RGBA at (37°, 5), (0°, 5), (90°, 64), (37°, 1000) with a
      strength map holding NaN and out-of-range values; edge shapes 1×1,
-     97×411, 4096×1; library call: `F.grid_sample` on a circularly padded
-     input;
+     97×411, 4096×1; timed as one call and ten back to back; library call:
+     `F.grid_sample` on a circularly padded input;
 4. PBR slice: `models.pbr_material_graph()` at 4096² through
    `TextureProcessor(device="cuda")` → `LiveGraph` → `buffer_rgba`, a 4096²
    height plane from `numpy.random.default_rng(0)`: all four maps, then an
@@ -61,13 +61,15 @@ Phases, each of which raises (exit code != 0) on failure:
    from the plane, and on edge blocks (block_h == radius, widths 1 and 411,
    halos that are unaligned views into a plane, the two-pass form); the
    warp block (`kanter_warp_block_f32`) on the four blocks of 4096² RGBA at
-   (37°, 5) and (90°, 64) with NaN and out-of-range strength. Then the
-   sharded calls (`blur_plane_sharded`, `warp_planes_mesh`, four shards)
-   against the dense kernels on the whole 4096² plane, 0 mismatches. Timed:
-   the block kernel on one 1024×4096 block, its plain version, one library
-   call on the halo-extended block (`conv2d` pair, `grid_sample`), and the
-   sharded call with its exchange, its plain form and the dense library
-   call, each beside its bound;
+   (37°, 5), (37°, 9) and (90°, 64), of 256×8 at (0°, 20) (the general
+   column path) and of 100×411 (no 16-byte access), with NaN and
+   out-of-range strength. Then the sharded calls (`blur_plane_sharded`,
+   `warp_planes_mesh`, four shards) against the dense kernels on the whole
+   plane, 0 mismatches. Timed: the block kernel on one 1024×4096 block
+   (one call, and ten back to back), its plain version, one library call on
+   the halo-extended block (`conv2d` pair, `grid_sample`), and the sharded
+   call with its exchange (one call, and ten back to back), its plain form
+   and the dense library call, each beside its bound;
 8. the mesh slice: the PBR and flagship sequences of phases 4 and 5 at 4096²
    through `TextureProcessor(mesh=...)`, four shards (on `cuda:0..3` when
    four cards are visible, else all on `cuda:0`); every read's u8 export
@@ -449,18 +451,19 @@ def warp_phase(kp_warp) -> dict:
             raise AssertionError(f"warp kernel differs from plain at {h}x{w} {payload}")
         if (h, w) == (4096, 4096) and payload == (37.0, 5.0):
             ms = time_cuda(lambda: kp_warp.warp_planes_cuda(planes, strength, k))
+            device_ms = time_cuda(lambda: kp_warp.warp_planes_cuda(planes, strength, k), calls=10)
             plain_ms = time_cuda(lambda: kp_warp.warp_planes_plain(planes, strength, k))
             library = warp_library(planes, strength, k)
             library_ms = time_cuda(library)
             lib_err = float((library() - torch.stack(list(want))).abs().max().item())
             n = h * w
             bound, by = bound_ms(36.0 * n, WARP_FLOPS_PER_PX * n, FP32_FLOPS)
-            log(f"  time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                f"{library_ms:.4f} ms (max |library − plain| {lib_err:.3g}), "
-                f"bound {bound:.4f} ms ({by})")
+            log(f"  time: kernel {ms:.4f} ms ({device_ms:.4f} ms back to back), plain "
+                f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (max |library − plain| "
+                f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
             timings.append({"shape": f"{h}x{w}", "payload": list(payload), "ms": ms,
-                            "plain_ms": plain_ms, "library_ms": library_ms,
-                            "bound_ms": bound, "bound_by": by})
+                            "device_ms": device_ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": bound, "bound_by": by})
     return {"max_abs_err": max_err, "timings": timings}
 
 
@@ -790,10 +793,14 @@ def warp_block_phase(kp_warp, mesh) -> dict:
 
     rng = np.random.default_rng(5)
     n = mesh.n
-    h = w = CANVAS
     max_err = 0.0
     timings = []
-    for payload in ((37.0, 5.0), (90.0, 64.0)):
+    # the main path's two payloads (render and Warp edit) and a large one at
+    # 4096²; 256x8 at (0°, 20) takes the general column path (ceil(20/2) + 2
+    # > 8 columns) and 100x411 (an odd width) the launch without vector accesses
+    cases = [(CANVAS, CANVAS, p) for p in ((37.0, 5.0), (37.0, 9.0), (90.0, 64.0))]
+    cases += [(256, 8, (0.0, 20.0)), (100, 411, (37.0, 5.0))]
+    for h, w, payload in cases:
         planes = [torch.from_numpy(rng.random((h, w), dtype=np.float32)).cuda() for _ in range(4)]
         m = rng.random((h, w), dtype=np.float32) * np.float32(1.6) - np.float32(0.3)
         m.flat[::97] = np.nan
@@ -821,15 +828,20 @@ def warp_block_phase(kp_warp, mesh) -> dict:
         torch.cuda.synchronize()
         bad_sharded = sum(mismatches(torch.cat([b.to(d.device) for b in s.bands]), d)
                           for s, d in zip(sharded, dense))
+        kx, ky = (float(c) for c in k)
+        plan = kp_warp.warp_block_plan(kx, ky, bh, w, h, halo, ss.bands[0].data_ptr() % 8 == 0)
         log(f"kernel warp block {h}x{w} RGBA in {n} blocks angle={payload[0]} "
-            f"intensity={payload[1]} halo={halo}: {bad} bit mismatches vs plain; sharded vs "
-            f"dense kernel {bad_sharded} mismatches")
+            f"intensity={payload[1]} halo={halo} ({plan}): {bad} bit mismatches vs plain; "
+            f"sharded vs dense kernel {bad_sharded} mismatches")
         if bad or bad_sharded:
-            raise AssertionError(f"warp block kernel differs at {payload}")
-        if payload != (37.0, 5.0):
+            raise AssertionError(f"warp block kernel differs at {h}x{w} {payload}")
+        if (h, w, payload) == (256, 8, (0.0, 20.0)) and plan.mode != kp_warp.WARP_COL_GENERAL:
+            raise AssertionError(f"256x8 at {payload} did not take the general column path")
+        if (h, w, payload) != (CANVAS, CANVAS, (37.0, 5.0)):
             continue
         args = block_args(0)  # on the first device
         ms = time_cuda(lambda: kp_warp.warp_block_cuda(*args))
+        device_ms = time_cuda(lambda: kp_warp.warp_block_cuda(*args), calls=10)
         plain_ms = time_cuda(lambda: kp_warp.warp_block_plain(*args))
         library = warp_block_library(*args)
         library_ms = time_cuda(library)
@@ -845,20 +857,23 @@ def warp_block_phase(kp_warp, mesh) -> dict:
                                              j * bh, h) for j in range(n)]
 
         s_ms = time_cuda(lambda: kp_warp.warp_planes_mesh(sps, ss, k, halo))
+        s_device_ms = time_cuda(lambda: kp_warp.warp_planes_mesh(sps, ss, k, halo), calls=10)
         s_plain_ms = time_cuda(sharded_plain)
         s_library_ms = time_cuda(warp_library(planes, strength, k))
         s_bound, s_by = bound_ms(36.0 * h * w + n * halo_bytes, WARP_FLOPS_PER_PX * h * w,
                                  FP32_FLOPS)
-        log(f"  time: block {bh}x{w} RGBA kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{library_ms:.4f} ms (max |library − plain| {lib_err:.3g}), bound {bound:.4f} ms "
-            f"({by}); sharded {h}x{w} over {n}: {s_ms:.4f} ms with its exchange, plain "
-            f"{s_plain_ms:.4f} ms, library {s_library_ms:.4f} ms, bound {s_bound:.4f} ms ({s_by})")
+        log(f"  time: block {bh}x{w} RGBA kernel {ms:.4f} ms ({device_ms:.4f} ms back to back), "
+            f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms (max |library − plain| "
+            f"{lib_err:.3g}), bound {bound:.4f} ms ({by}); sharded {h}x{w} over {n}: {s_ms:.4f} "
+            f"ms with its exchange ({s_device_ms:.4f} ms back to back), plain {s_plain_ms:.4f} "
+            f"ms, library {s_library_ms:.4f} ms, bound {s_bound:.4f} ms ({s_by})")
         timings.append({"shape": f"{bh}x{w}", "payload": list(payload), "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
-                        "bound_by": by,
+                        "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                        "bound_ms": bound, "bound_by": by,
                         "sharded": {"shape": f"{h}x{w}", "shards": n, "ms": s_ms,
-                                    "plain_ms": s_plain_ms, "library_ms": s_library_ms,
-                                    "bound_ms": s_bound, "bound_by": s_by}})
+                                    "device_ms": s_device_ms, "plain_ms": s_plain_ms,
+                                    "library_ms": s_library_ms, "bound_ms": s_bound,
+                                    "bound_by": s_by}})
     return {"max_abs_err": max_err, "timings": timings}
 
 

@@ -33,19 +33,49 @@
 // runs on every shard of a row-sharded plane after a ring exchange of
 // +-halo rows. Output row ly of a [block_h, W] block is global row
 // y = row_origin + ly; the coordinates above use that global y and the
-// global height H, and the wrapped global source row y0 (and y1) is read
-// from the window [top; block; bot] at local row (y0 - row_origin + halo)
-// mod H -- the JAX package's `row_local` (ops/warp.py:263-266) -- through
-// three pointers per plane: `top` holds the halo rows before the block,
-// `bot` the halo rows after it. The caller guarantees halo >=
-// ceil(|ky|/2) + 2, so every sampled row lies in the window. Same
-// arithmetic, same texels: a sharded warp is bit-identical to the dense
-// one. Bound as the dense form: bytes, 36 per pixel plus the halo rows.
+// global height H, and the texels come from the window [top; block; bot]
+// through three pointers per plane (`top` the halo rows before the block,
+// `bot` those after it; no concatenated copy). The JAX package finds a
+// sample's window row as `row_local`, (y0 - row_origin + halo) mod H
+// (ops/warp.py:263-266). Same arithmetic, same texels: a sharded warp is
+// bit-identical to the dense one. Bound as the dense form: bytes, 36 per
+// pixel plus the halo rows. What the design does about a block's costs:
+//
+//   1. No remainder by a runtime divisor on the fast path (a general one
+//      would take four per pixel: the column's and the row's wrap and two
+//      `local_row`s). A sample's floor lies within cx = ceil(|kx|/2)
+//      columns and cy = ceil(|ky|/2) rows of its pixel. The caller
+//      guarantees halo >= cy + 2; where also block_h + 2 halo <= H (the
+//      mesh's gate gives it), the window row is r0 = (int)vf - row_origin +
+//      halo from the unwrapped floor -- the same residue mod H of a number
+//      in [0, H) -- and r1 = r0 + 1; where cx + 2 <= W the column wraps by
+//      one conditional add or subtract. The host picks this index mode per
+//      call (ops/warp.py `warp_block_index_mode`) and the entry checks it
+//      again; the other modes keep a remainder for the column (kColGeneral)
+//      or for both (kGeneral), for narrow planes, huge or non-finite kx,
+//      and windows taller than the plane.
+//   2. One segment pick (top, block or bot) per sample row, shared by the
+//      planes, each of which then adds only its base pointer; the rows
+//      whose samples all lie in the block itself -- all but the first cy
+//      and the last cy + 1 -- read `block` with no pick at all.
+//   3. Two adjacent pixels per thread, with 8-byte strength loads and
+//      output stores where W is even and the strength aligned (else two
+//      pixels a block's width apart, scalar), on a tile of 8 rows x 64
+//      columns (16 x 32 where samples reach more than 4 rows): the rows of
+//      a block share most of their source rows in L1.
+//
+// Tried and taken out (PERF.md): staging each plane's source window in
+// shared memory with 16-byte cp.async (slower than the direct gather at
+// every tile tried); 1 or 4 pixels per thread, register bounds for more
+// blocks per SM (scripts/kernel_tile_sweep.py --warp builds these from an
+// edited copy of this file): slower.
 //
 // The C entry points launch on the caller's stream, allocate nothing and
 // return cudaGetLastError().
 
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 namespace {
 
@@ -55,14 +85,6 @@ constexpr int kMaxPlanes = 4;
 
 struct Planes {
     const float* in[kMaxPlanes];
-    float* out[kMaxPlanes];
-};
-
-// one row block per plane, as three row ranges of the window [top; mid; bot]
-struct BlockPlanes {
-    const float* top[kMaxPlanes];
-    const float* mid[kMaxPlanes];
-    const float* bot[kMaxPlanes];
     float* out[kMaxPlanes];
 };
 
@@ -134,40 +156,203 @@ __global__ void warp_bilinear(Planes planes, int n_planes, const float* __restri
     }
 }
 
-// local row i in [0, block_h + 2*halo) of the window [top; mid; bot]
-__device__ __forceinline__ const float* window_row(const float* top, const float* mid,
-                                                   const float* bot, int i, int halo,
-                                                   int block_h, int w) {
-    if (i < halo) return top + (size_t)i * w;
-    if (i < halo + block_h) return mid + (size_t)(i - halo) * w;
-    return bot + (size_t)(i - halo - block_h) * w;
-}
+// ---- the block form ----
+
+// pixels per thread of a block launch, adjacent in a row
+constexpr int kPx = 2;
+
+// How a block launch finds a sample's texels; the host picks one
+// (`warp_block_index_mode` in ops/warp.py) and this entry checks its
+// preconditions again.
+constexpr int kFast = 0;        // conditional column wrap, unwrapped window row
+constexpr int kColGeneral = 1;  // remainder column wrap, unwrapped window row
+constexpr int kGeneral = 2;     // remainder column wrap, remainder window row
+
+// One launch's row block: per plane p, `top[p]` and `bot[p]` hold `halo`
+// rows and `mid[p]` and `out[p]` `block_h` rows, all of width w; the window
+// of plane p is [top; mid; bot], window row r in [0, block_h + 2 halo).
+struct BlockArgs {
+    const float* top[kMaxPlanes];
+    const float* mid[kMaxPlanes];
+    const float* bot[kMaxPlanes];
+    float* out[kMaxPlanes];
+    const float* strength;
+    int n_planes;
+    float kx, ky;
+    int block_h, w, h, row_origin, halo;
+    int cx, cy;  // ceil(|kx| / 2), ceil(|ky| / 2): how far a sample lies from its pixel
+};
+
+// where output pixel (x, row_origin + ly) samples: the arithmetic of
+// sample_at, the rows as window rows
+struct BlockSample {
+    float fu, fv;
+    int x0, x1, r0, r1;
+};
 
 __device__ __forceinline__ int local_row(int y, int row_origin, int halo, int h) {
     const int r = (y - row_origin + halo) % h;
     return r < 0 ? r + h : r;
 }
 
-__global__ void warp_bilinear_block(BlockPlanes planes, int n_planes,
-                                    const float* __restrict__ strength, float kx, float ky,
-                                    int block_h, int w, int h, int row_origin, int halo) {
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
-    if (x >= w) return;
-    for (int ly = blockIdx.y; ly < block_h; ly += gridDim.y) {
-        const size_t idx = (size_t)ly * w + x;
-        const Sample s = sample_at(strength[idx], x, row_origin + ly, kx, ky, h, w);
-        const int i0 = local_row(s.y0, row_origin, halo, h);
-        const int i1 = local_row(s.y1, row_origin, halo, h);
+template <int MODE>
+__device__ __forceinline__ BlockSample block_sample(float m, int x, int ly, const BlockArgs& a) {
+    float ms = m < 0.0f ? 0.0f : (m > 1.0f ? 1.0f : m);
+    if (m != m) ms = 0.5f;
+    const float d = __fsub_rn(ms, 0.5f);
+    const float u = __fadd_rn((float)x, __fmul_rn(a.kx, d));
+    const float v = __fadd_rn((float)(a.row_origin + ly), __fmul_rn(a.ky, d));
+    const float uf = clip_floor(u);
+    const float vf = clip_floor(v);
+    BlockSample s;
+    s.fu = __fsub_rn(u, uf);
+    s.fv = __fsub_rn(v, vf);
+    if (MODE == kFast) {
+        // kx finite and cx + 2 <= w: uf lies in [x - cx, x + cx], inside [-w, 2w)
+        const int i = (int)uf;
+        s.x0 = i < 0 ? i + a.w : (i >= a.w ? i - a.w : i);
+    } else {
+        s.x0 = wrap_index(uf, a.w);
+    }
+    s.x1 = s.x0 + 1 == a.w ? 0 : s.x0 + 1;
+    if (MODE == kGeneral) {
+        const int y0 = wrap_index(vf, a.h);
+        const int y1 = y0 + 1 == a.h ? 0 : y0 + 1;
+        s.r0 = local_row(y0, a.row_origin, a.halo, a.h);
+        s.r1 = local_row(y1, a.row_origin, a.halo, a.h);
+    } else {
+        // halo >= cy + 2 and block_h + 2 halo <= h: vf lies in [y - cy, y + cy],
+        // so r0 lies in [2, block_h + 2 halo - 2) and is local_row(y0), the
+        // same residue mod h of a number in [0, h)
+        s.r0 = (int)vf - a.row_origin + a.halo;
+        s.r1 = s.r0 + 1;
+    }
+    return s;
+}
+
+// window row r of plane p, the segment resolved once per sample row and
+// shared by every plane
+struct RowRef {
+    int seg;  // 0 top, 1 mid, 2 bot
+    int off;  // row in that segment
+};
+
+__device__ __forceinline__ RowRef row_ref(int r, int halo, int block_h) {
+    if (r < halo) return {0, r};
+    if (r < halo + block_h) return {1, r - halo};
+    return {2, r - halo - block_h};
+}
+
+__device__ __forceinline__ const float* row_of(const BlockArgs& a, int p, RowRef q) {
+    const float* base = q.seg == 0 ? a.top[p] : (q.seg == 1 ? a.mid[p] : a.bot[p]);
+    return base + (size_t)q.off * a.w;
+}
+
+__device__ __forceinline__ float lerp4(float n00, float n10, float n01, float n11, float fu,
+                                       float fv) {
+    const float nx0 = __fadd_rn(n00, __fmul_rn(fu, __fsub_rn(n10, n00)));
+    const float nx1 = __fadd_rn(n01, __fmul_rn(fu, __fsub_rn(n11, n01)));
+    return __fadd_rn(nx0, __fmul_rn(fv, __fsub_rn(nx1, nx0)));
+}
+
+// The kPx samples of one thread for every plane. INNER: every sample row
+// lies in `mid` (no segment to pick).
+template <int MODE, bool VEC, bool INNER>
+__device__ __forceinline__ void shade_row(const BlockArgs& a, const BlockSample (&s)[kPx],
+                                          int x_first, int x_step, size_t row) {
+    RowRef q0[kPx], q1[kPx];
+    if constexpr (!INNER) {
 #pragma unroll
-        for (int p = 0; p < kMaxPlanes; ++p) {
-            if (p >= n_planes) break;
-            const float* r0 = window_row(planes.top[p], planes.mid[p], planes.bot[p], i0, halo,
-                                         block_h, w);
-            const float* r1 = window_row(planes.top[p], planes.mid[p], planes.bot[p], i1, halo,
-                                         block_h, w);
-            planes.out[p][idx] = lerp_at(r0, r1, s);
+        for (int i = 0; i < kPx; ++i) {
+            q0[i] = row_ref(s[i].r0, a.halo, a.block_h);
+            q1[i] = row_ref(s[i].r1, a.halo, a.block_h);
         }
     }
+#pragma unroll
+    for (int p = 0; p < kMaxPlanes; ++p) {
+        if (p >= a.n_planes) break;
+        float o[kPx];
+#pragma unroll
+        for (int i = 0; i < kPx; ++i) {
+            const float* r0;
+            const float* r1;
+            if constexpr (INNER) {
+                r0 = a.mid[p] + (size_t)(s[i].r0 - a.halo) * a.w;
+                r1 = r0 + a.w;
+            } else {
+                r0 = row_of(a, p, q0[i]);
+                r1 = row_of(a, p, q1[i]);
+            }
+            o[i] = lerp4(__ldg(r0 + s[i].x0), __ldg(r0 + s[i].x1), __ldg(r1 + s[i].x0),
+                         __ldg(r1 + s[i].x1), s[i].fu, s[i].fv);
+        }
+        float* dst = a.out[p] + row;
+        if constexpr (VEC) {
+            *reinterpret_cast<float2*>(dst + x_first) = make_float2(o[0], o[1]);
+        } else {
+#pragma unroll
+            for (int i = 0; i < kPx; ++i) {
+                if (x_first + i * x_step < a.w) dst[x_first + i * x_step] = o[i];
+            }
+        }
+    }
+}
+
+// A block of tw / kPx x th <= 256 threads covers th rows x tw columns; a
+// thread's kPx pixels of a row are adjacent, with 8-byte strength loads and
+// output stores (VEC), or blockDim.x apart.
+template <int MODE, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    warp_block_direct(const __grid_constant__ BlockArgs a) {
+    const int x_first = blockIdx.x * blockDim.x * kPx + (VEC ? threadIdx.x * kPx : threadIdx.x);
+    const int x_step = VEC ? 1 : blockDim.x;
+    if (VEC && x_first >= a.w) return;  // w % kPx == 0: a thread's pixels are all in or all out
+    for (int ly = blockIdx.y * blockDim.y + threadIdx.y; ly < a.block_h;
+         ly += gridDim.y * blockDim.y) {
+        const size_t row = (size_t)ly * a.w;
+        float m[kPx];
+        if (VEC) {
+            const float2 t = __ldg(reinterpret_cast<const float2*>(a.strength + row + x_first));
+            m[0] = t.x, m[1] = t.y;
+        } else {
+#pragma unroll
+            for (int i = 0; i < kPx; ++i) {
+                const int x = x_first + i * x_step;
+                m[i] = x < a.w ? __ldg(a.strength + row + x) : 0.0f;
+            }
+        }
+        BlockSample s[kPx];
+#pragma unroll
+        for (int i = 0; i < kPx; ++i) {
+            // a pixel past the edge (not stored) samples as the last column does
+            const int x = min(x_first + i * x_step, a.w - 1);
+            s[i] = block_sample<MODE>(m[i], x, ly, a);
+        }
+        // a row's samples lie within cy rows of it, and r1 one below r0
+        const bool inner = MODE != kGeneral && ly >= a.cy && ly + a.cy + 2 <= a.block_h;
+        if (inner) {
+            shade_row<MODE, VEC, true>(a, s, x_first, x_step, row);
+        } else {
+            shade_row<MODE, VEC, false>(a, s, x_first, x_step, row);
+        }
+    }
+}
+
+bool aligned_to(const void* p, int bytes) {
+    return (reinterpret_cast<size_t>(p) & (size_t)(bytes - 1)) == 0;
+}
+
+template <int MODE>
+int launch_direct(const BlockArgs& a, bool vec, int th, int tw, cudaStream_t stream) {
+    const dim3 block(tw / kPx, th);
+    const long long ty = ((long long)a.block_h + th - 1) / th;
+    const dim3 grid((a.w + tw - 1) / tw, (unsigned)(ty < kMaxGridY ? ty : kMaxGridY));
+    if (vec) {
+        warp_block_direct<MODE, true><<<grid, block, 0, stream>>>(a);
+    } else {
+        warp_block_direct<MODE, false><<<grid, block, 0, stream>>>(a);
+    }
+    return (int)cudaGetLastError();
 }
 
 dim3 grid_for(int h, int w) {
@@ -187,8 +372,12 @@ extern "C" int kanter_warp_bilinear_f32(const float* in0, const float* in1, cons
     return (int)cudaGetLastError();
 }
 
-// per plane p: top_p and bot_p hold `halo` rows, mid_p and out_p `block_h`
-// rows, all of width w; strength is the block's [block_h, w] map
+// The block form. Per plane p: top_p and bot_p hold `halo` rows, mid_p and
+// out_p `block_h` rows, all of width w; strength is the block's [block_h, w]
+// map. `mode` is the index mode (kFast, kColGeneral, kGeneral); a block of
+// tw / 2 x th threads covers th rows x tw columns, two pixels per thread,
+// adjacent with 8-byte strength loads and output stores when vec. Returns
+// cudaErrorInvalidValue for a launch whose preconditions fail.
 extern "C" int kanter_warp_block_f32(const float* top0, const float* top1, const float* top2,
                                      const float* top3, const float* mid0, const float* mid1,
                                      const float* mid2, const float* mid3, const float* bot0,
@@ -196,15 +385,38 @@ extern "C" int kanter_warp_block_f32(const float* top0, const float* top1, const
                                      float* out0, float* out1, float* out2, float* out3,
                                      int n_planes, const float* strength, float kx, float ky,
                                      int block_h, int w, int h, int row_origin, int halo,
+                                     int mode, int vec, int th, int tw,
                                      cudaStream_t stream) {
-    if (n_planes < 1 || n_planes > kMaxPlanes || halo < 1 || h < 1) {
+    if (n_planes < 1 || n_planes > kMaxPlanes || halo < 1 || h < 1 || w < 1 || block_h < 1 ||
+        th < 1 || tw < kPx || tw % kPx || (tw / kPx) * th > kThreads || mode < kFast ||
+        mode > kGeneral) {
         return (int)cudaErrorInvalidValue;
     }
-    const BlockPlanes planes = {{top0, top1, top2, top3},
-                                {mid0, mid1, mid2, mid3},
-                                {bot0, bot1, bot2, bot3},
-                                {out0, out1, out2, out3}};
-    warp_bilinear_block<<<grid_for(block_h, w), kThreads, 0, stream>>>(
-        planes, n_planes, strength, kx, ky, block_h, w, h, row_origin, halo);
-    return (int)cudaGetLastError();
+    BlockArgs a = {{top0, top1, top2, top3},
+                   {mid0, mid1, mid2, mid3},
+                   {bot0, bot1, bot2, bot3},
+                   {out0, out1, out2, out3},
+                   strength, n_planes, kx, ky, block_h, w, h, row_origin, halo, 0, 0};
+    const float lim = 1e9f;
+    const bool kx_finite = fabsf(kx) <= lim, ky_finite = fabsf(ky) <= lim;
+    a.cx = kx_finite ? (int)ceilf(fabsf(kx) * 0.5f) : 0;
+    a.cy = ky_finite ? (int)ceilf(fabsf(ky) * 0.5f) : 0;
+    const int max_exact = 1 << 24;  // every pixel coordinate is an exact f32
+    const bool row_fast = (long long)block_h + 2LL * halo <= h && h <= max_exact;
+    const bool col_fast = kx_finite && a.cx + 2 <= w && w <= max_exact;
+    // every mode reads only window rows: the halo covers the displacement
+    if (!ky_finite || a.cy + 2 > halo || (mode != kGeneral && !row_fast) ||
+        (mode == kFast && !col_fast)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (vec) {
+        bool ok = w % kPx == 0 && aligned_to(strength, 4 * kPx);
+        for (int p = 0; p < n_planes; ++p) ok = ok && aligned_to(a.out[p], 4 * kPx);
+        if (!ok) return (int)cudaErrorInvalidValue;
+    }
+    switch (mode) {
+        case kFast: return launch_direct<kFast>(a, vec, th, tw, stream);
+        case kColGeneral: return launch_direct<kColGeneral>(a, vec, th, tw, stream);
+        default: return launch_direct<kGeneral>(a, vec, th, tw, stream);
+    }
 }

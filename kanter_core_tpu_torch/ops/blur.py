@@ -18,8 +18,9 @@ launch); there is no fallback from one to the other.
 
 The mesh form (`TextureProcessor(mesh=...)`) blurs a row-sharded plane
 shard by shard, the port of `pallas_blur._blur_pallas_sharded`: a ring
-exchange of ±radius rows (`ShardedPlane.ring_halos`), then one block launch
-per shard on that shard's device, `blur_block_plain` / `blur_block_cuda`
+exchange of ±radius rows (`ShardedPlane.ring_halos`; on CUDA devices
+`ring_halo_addresses`, by device address), then one block launch per shard
+on that shard's device, `blur_block_plain` / `blur_block_cuda`
 (the entry `kanter_blur_block_f32` of `csrc/blur.cu`, the port of
 `pallas_blur._blur_block`). Where the blocks are shorter than the radius
 (`fits_sharded`), the plane is gathered to the mesh's first device, blurred
@@ -224,6 +225,29 @@ def blur_plane_cuda(plane: torch.Tensor, sigma: float) -> torch.Tensor:
     return out
 
 
+def _blur_block_launch(block: torch.Tensor, top: int, bot: int, taps: np.ndarray,
+                       sigma: float) -> torch.Tensor:
+    """The block kernel on the block's device and current stream, for a
+    checked block whose `r`-row top and bottom halos start at the device
+    addresses `top` and `bot`."""
+    block_h, w = block.shape
+    kernel = BLUR_BLOCK_KERNEL.entry()
+    out = torch.empty_like(block)
+    with torch.cuda.device(block.device):
+        th, tw, scratch, taps_dev, _keep = _launch_args(taps, block_h, w, block)
+        stream = torch.cuda.current_stream(block.device).cuda_stream
+        rc = kernel(
+            top, block.data_ptr(), bot, out.data_ptr(),
+            taps.ctypes.data, len(taps), block_h, w, th, tw, scratch, taps_dev, stream,
+        )
+    if rc != 0:
+        raise TexProError(
+            ErrorKind.NODE_PROCESSING, f"blur block kernel launch failed: CUDA error {rc}"
+        )
+    BLUR_BLOCK_KERNEL.count_launch(round(float(sigma), 6))
+    return out
+
+
 def blur_block_cuda(block: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
                     sigma: float) -> torch.Tensor:
     """The hand-written CUDA blur of one row block with explicit halos (the
@@ -243,21 +267,7 @@ def blur_block_cuda(block: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
             f"blur block kernel: halos must lie on {block.device} and the block "
             f"({block_h} rows) hold at least {r} rows",
         )
-    kernel = BLUR_BLOCK_KERNEL.entry()
-    out = torch.empty_like(block)
-    with torch.cuda.device(block.device):
-        th, tw, scratch, taps_dev, _keep = _launch_args(taps, block_h, w, block)
-        stream = torch.cuda.current_stream(block.device).cuda_stream
-        rc = kernel(
-            top.data_ptr(), block.data_ptr(), bot.data_ptr(), out.data_ptr(),
-            taps.ctypes.data, len(taps), block_h, w, th, tw, scratch, taps_dev, stream,
-        )
-    if rc != 0:
-        raise TexProError(
-            ErrorKind.NODE_PROCESSING, f"blur block kernel launch failed: CUDA error {rc}"
-        )
-    BLUR_BLOCK_KERNEL.count_launch(round(float(sigma), 6))
-    return out
+    return _blur_block_launch(block, top.data_ptr(), bot.data_ptr(), taps, sigma)
 
 
 def blur_block(block: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
@@ -290,7 +300,21 @@ def blur_plane_sharded(sp: ShardedPlane, sigma: float) -> ShardedPlane:
     if not fits_sharded(sp.shape[0], len(taps), mesh.n):
         whole = sp.gather(mesh.devices[0], "blur_gate")
         return shard_planes_rows(mesh, blur_plane(whole, sigma))
-    halos = sp.ring_halos((len(taps) - 1) // 2)
+    r = (len(taps) - 1) // 2
+    if mesh.device_type == "cuda":
+        # a ShardedPlane's bands are 2-D, alike and each on its shard's
+        # device, and its ring halos are rows of them (or copies), so what
+        # is left to check is f32 and contiguous bands
+        if not (sp.dtype == torch.float32 and all(b.is_contiguous() for b in sp.bands)):
+            raise TexProError(
+                ErrorKind.GENERIC, f"blur block kernel needs contiguous float32 bands; got {sp}"
+            )
+        tops, bots, _copies = sp.ring_halo_addresses(r)  # _copies: alive until launched
+        return ShardedPlane(mesh, [
+            _blur_block_launch(band, top, bot, taps, sigma)
+            for band, top, bot in zip(sp.bands, tops, bots)
+        ])
+    halos = sp.ring_halos(r)
     return ShardedPlane(
         mesh, [blur_block(band, top, bot, sigma) for band, (top, bot) in zip(sp.bands, halos)]
     )

@@ -24,17 +24,22 @@ displacement, so a ring exchange of ±`warp_halo(intensity)` rows
 (`ShardedPlane.ring_halos`) gives every shard the rows it samples, and each
 shard runs one block launch on its device with its global first row:
 `warp_block_plain` / `warp_block_cuda` (the entry `kanter_warp_block_f32`
-of `csrc/warp.cu`, the port of `pallas_warp._warp_block`). Where `fits_mesh`
-fails (an unbounded intensity, blocks shorter than the halo, fewer than two
-shards), the planes are gathered to the mesh's first device, warped by the
-dense kernel and sharded again, counted as `warp_gate` gathers — GSPMD's
-all-gather in the JAX package.
+of `csrc/warp.cu`, the port of `pallas_warp._warp_block`). The host picks
+the block kernel's index mode (`warp_block_index_mode`: which wraps need no
+remainder) and its launch (`warp_block_plan`); on CUDA devices the mesh
+form passes the halos by device address (`ShardedPlane.ring_halo_addresses`)
+and checks its operands once per plane, not once per shard. Where
+`fits_mesh` fails (an unbounded intensity, blocks shorter than the halo,
+fewer than two shards), the planes are gathered to the mesh's first device,
+warped by the dense kernel and sharded again, counted as `warp_gate`
+gathers — GSPMD's all-gather in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -136,10 +141,12 @@ WARP_KERNEL = CudaKernel(
 WARP_BLOCK_KERNEL = CudaKernel(
     "warp", "kanter_warp_block_f32",
     [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_void_p]
-    + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    + [ctypes.c_float] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 )
 
 _MAX_PLANES = 4  # planes per launch (csrc/warp.cu kMaxPlanes)
+_F32 = torch.float32
+_EXACT = 1 << 24  # every pixel coordinate below it is an exact f32
 
 
 def _check_plane(t: torch.Tensor, what: str, shape) -> None:
@@ -182,60 +189,205 @@ def warp_planes_cuda(planes, strength: torch.Tensor, k) -> tuple:
     return tuple(outs)
 
 
+# index modes of the block kernel (csrc/warp.cu kFast, kColGeneral, kGeneral)
+WARP_FAST, WARP_COL_GENERAL, WARP_GENERAL = 0, 1, 2
+
+# pixels per thread of the block launch (csrc/warp.cu kPx), adjacent with
+# 8-byte accesses where the rows allow it; its tiles are `warp_block_tile`'s.
+# Both chosen on the card with `scripts/kernel_tile_sweep.py --warp`.
+WARP_BLOCK_PX = 2
+
+
+def warp_block_index_mode(kx: float, ky: float, block_h: int, w: int, h: int,
+                          halo: int) -> int:
+    """How the block kernel finds a sample's texels, from the f32 `kx, ky`.
+    A sample's floor lies within `⌈|k|/2⌉` of its pixel, so where `halo ≥
+    ⌈|ky|/2⌉ + 2` and `block_h + 2·halo ≤ h` (what `fits_mesh` gives) its
+    window row is `(int)vf − row_origin + halo`, no remainder: the same
+    residue mod `h` as the plain version's `row_local`, of a number in
+    `[0, h)`. Where `kx` is finite and `⌈|kx|/2⌉ + 2 ≤ w`, the column wraps
+    by one conditional add or subtract. `WARP_FAST` takes both,
+    `WARP_COL_GENERAL` the row only, `WARP_GENERAL` neither (a remainder
+    for each, as the plain version takes)."""
+    row_fast = (math.isfinite(ky) and halo >= math.ceil(abs(ky) * 0.5) + 2
+                and block_h + 2 * halo <= h <= _EXACT)
+    if not row_fast:
+        return WARP_GENERAL
+    col_fast = math.isfinite(kx) and math.ceil(abs(kx) * 0.5) + 2 <= w <= _EXACT
+    return WARP_FAST if col_fast else WARP_COL_GENERAL
+
+
+class WarpBlockPlan(NamedTuple):
+    """One block launch: the index `mode`; two pixels per thread, adjacent
+    with 8-byte accesses when `vec`, else a block's width apart; a tile of
+    `th` rows and `tw` columns, `tw / 2 × th` threads."""
+
+    mode: int
+    vec: bool
+    th: int
+    tw: int
+
+
+def warp_block_tile(ky: float) -> tuple:
+    """The block launch's tile, rows × columns: 8 × 64 where a sample lies
+    at most 4 rows from its pixel (the main path's intensities, up to 9),
+    else 16 × 32, a taller tile whose rows share more of their source rows
+    in L1 (25% faster at intensity 64, 3% slower at 5)."""
+    near = math.isfinite(ky) and math.ceil(abs(ky) * 0.5) <= 4
+    return (8, 64) if near else (16, 32)
+
+
+def warp_block_plan(kx: float, ky: float, block_h: int, w: int, h: int, halo: int,
+                    aligned: bool) -> WarpBlockPlan:
+    """The launch for a block of `block_h × w` rows and columns of an
+    `h`-row canvas with `halo` rows above and below; `aligned`: the strength
+    starts on an 8-byte boundary (the outputs, fresh allocations, do), so
+    that with an even `w` a thread's two adjacent pixels are one 8-byte
+    access."""
+    th, tw = warp_block_tile(ky)
+    return WarpBlockPlan(warp_block_index_mode(kx, ky, block_h, w, h, halo),
+                         aligned and w % WARP_BLOCK_PX == 0, th, tw)
+
+
+def _k_floats(k) -> tuple:
+    """`k` as the two Python floats of its f32 values."""
+    return tuple(np.asarray(k, np.float32).tolist())
+
+
+def _refuse(what: str) -> None:
+    raise TexProError(ErrorKind.GENERIC, f"warp block kernel: {what}")
+
+
+def _check_halo(halo: int, ky: float) -> None:
+    if not (math.isfinite(ky) and halo >= math.ceil(abs(ky) * 0.5) + 2):
+        _refuse(f"a halo of {halo} rows does not cover ky={ky}")
+
+
+class _BlockLaunch(NamedTuple):
+    """What every shard's launch of one call shares."""
+
+    kernel: object
+    kx: float
+    ky: float
+    block_h: int
+    w: int
+    h: int
+    halo: int
+    plan: WarpBlockPlan
+
+
+def _launch_shard(launch: _BlockLaunch, stream: int, tops, mids, bots, strength: int,
+                  row_origin: int, like: torch.Tensor) -> list:
+    """The block kernel on `stream` (of the current device) for the planes
+    whose top, mid and bottom rows start at the addresses `tops[p]`,
+    `mids[p]`, `bots[p]`: one launch per group of four planes. Returns the
+    outputs, new tensors like `like`; the caller has checked the operands."""
+    n = len(mids)
+    outs = [torch.empty_like(like) for _ in range(n)]  # the allocator aligns them to 512 bytes
+    plan = launch.plan
+    for start in range(0, n, _MAX_PLANES):
+        stop = min(start + _MAX_PLANES, n)
+        pad = [None] * (_MAX_PLANES - (stop - start))
+        rc = launch.kernel(*tops[start:stop], *pad, *mids[start:stop], *pad, *bots[start:stop],
+                           *pad, *[o.data_ptr() for o in outs[start:stop]], *pad, stop - start,
+                           strength, launch.kx, launch.ky, launch.block_h, launch.w, launch.h,
+                           row_origin, launch.halo, plan.mode, plan.vec, plan.th, plan.tw,
+                           stream)
+        if rc != 0:
+            raise TexProError(
+                ErrorKind.NODE_PROCESSING, f"warp block kernel launch failed: CUDA error {rc}"
+            )
+        WARP_BLOCK_KERNEL.count_launch()
+    return outs
+
+
+def check_warp_block(block_planes, strength_blk: torch.Tensor, k, tops, bots) -> tuple:
+    """The block kernel's operands, checked in one pass: every tensor a
+    contiguous 2-D f32 plane of its shape (`[block_h, W]` for the strength
+    and the planes, `[halo, W]` for the halos) on the strength's device, one
+    top and one bottom halo per plane, and a halo that covers the
+    displacement (`halo ≥ ⌈|ky|/2⌉ + 2`, so no sampled row leaves the
+    window). Returns `(block_h, w, halo, kx, ky, addresses)`, the addresses
+    of the strength and of the planes, tops and bottoms; raises
+    `TexProError`."""
+    if not (strength_blk.dim() == 2 and tops and len(block_planes) == len(tops) == len(bots)):
+        _refuse(f"needs a 2-D strength block and one top and one bottom halo per plane; got "
+                f"{tuple(strength_blk.shape)}, {len(block_planes)} planes, {len(tops)} and "
+                f"{len(bots)} halos")
+    block_h, w = strength_blk.shape
+    halo = tops[0].shape[0]
+    device = strength_blk.device
+    addresses = []
+    for seq, shape in (((strength_blk,), (block_h, w)), (block_planes, (block_h, w)),
+                       (tops, (halo, w)), (bots, (halo, w))):
+        for t in seq:
+            if not (t.dtype is _F32 and t.shape == shape and t.is_contiguous()
+                    and t.device == device):
+                _refuse(f"needs contiguous {shape} float32 tensors on {device}; got {t.dtype} "
+                        f"{tuple(t.shape)} on {t.device}")
+        addresses.append([t.data_ptr() for t in seq])
+    kx, ky = _k_floats(k)
+    _check_halo(halo, ky)
+    return block_h, w, halo, kx, ky, addresses
+
+
+def _aligned(*address_lists) -> bool:
+    """Every address on an 8-byte boundary."""
+    return not any(a & 7 for addresses in address_lists for a in addresses)
+
+
 def warp_block_cuda(block_planes, strength_blk: torch.Tensor, k, tops, bots,
                     row_origin: int, h: int) -> tuple:
     """The hand-written CUDA warp of one row block (the
     `kanter_warp_block_f32` entry of `csrc/warp.cu`): one launch per group
     of up to four planes, on the block's device and current stream. Raises
-    unless every tensor is a contiguous f32 plane of its shape on that
-    device and the halo covers the displacement (`halo ≥ ⌈|ky|/2⌉ + 2`, so
-    no sampled row leaves the window)."""
-    block_h, w = strength_blk.shape
-    halo = tops[0].shape[0]
-    _check_plane(strength_blk, "the strength block", (block_h, w))
-    for p, t, b in zip(block_planes, tops, bots):
-        _check_plane(p, "a block", (block_h, w))
-        _check_plane(t, "a top halo", (halo, w))
-        _check_plane(b, "a bottom halo", (halo, w))
+    unless `check_warp_block` passes and the tensors lie on a CUDA
+    device."""
+    block_h, w, halo, kx, ky, (strength, mids, top_ptrs, bot_ptrs) = check_warp_block(
+        block_planes, strength_blk, k, tops, bots)
+    if not strength_blk.is_cuda:
+        _refuse(f"needs CUDA tensors; got {strength_blk.device}")
+    plan = warp_block_plan(kx, ky, block_h, w, h, halo, _aligned(strength))
+    launch = _BlockLaunch(WARP_BLOCK_KERNEL.entry(), kx, ky, block_h, w, h, halo, plan)
     device = strength_blk.device
-    if any(x.device != device for x in (*block_planes, *tops, *bots)):
-        raise TexProError(ErrorKind.GENERIC, f"warp block kernel: every tensor must lie on {device}")
-    kx, ky = (float(c) for c in np.asarray(k, np.float32))
-    if not (math.isfinite(ky) and halo >= math.ceil(abs(ky) * 0.5) + 2):
-        raise TexProError(
-            ErrorKind.GENERIC, f"warp block kernel: a halo of {halo} rows does not cover ky={ky}"
-        )
-    kernel = WARP_BLOCK_KERNEL.entry()
-    outs = [torch.empty_like(p) for p in block_planes]
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        for start in range(0, len(block_planes), _MAX_PLANES):
-            group = range(start, min(start + _MAX_PLANES, len(block_planes)))
-            pad = [None] * (_MAX_PLANES - len(group))
-            ptrs = []
-            for seq in (tops, block_planes, bots, outs):
-                ptrs += [seq[i].data_ptr() for i in group] + pad
-            rc = kernel(*ptrs, len(group), strength_blk.data_ptr(), kx, ky,
-                        block_h, w, h, int(row_origin), halo, stream)
-            if rc != 0:
-                raise TexProError(
-                    ErrorKind.NODE_PROCESSING,
-                    f"warp block kernel launch failed: CUDA error {rc}",
-                )
-            WARP_BLOCK_KERNEL.count_launch()
-    return tuple(outs)
+        return tuple(_launch_shard(launch, torch.cuda.current_stream(device).cuda_stream,
+                                   top_ptrs, mids, bot_ptrs, strength[0], int(row_origin),
+                                   strength_blk))
 
 
-def warp_block(block_planes, strength_blk: torch.Tensor, k, tops, bots,
-               row_origin: int, h: int) -> tuple:
-    """Warp of one row block with explicit halos: the plain version for CPU
-    tensors, the CUDA block kernel for CUDA tensors."""
-    if strength_blk.device.type == "cpu":
-        return warp_block_plain(block_planes, strength_blk, k, tops, bots, row_origin, h)
-    if strength_blk.device.type == "cuda":
-        c = [[x.contiguous() for x in seq] for seq in (block_planes, tops, bots)]
-        return warp_block_cuda(c[0], strength_blk.contiguous(), k, c[1], c[2], row_origin, h)
-    raise TexProError(ErrorKind.NODE_PROCESSING, f"no warp for device {strength_blk.device}")
+def _warp_mesh_cuda(planes, strength: ShardedPlane, k, halo: int) -> tuple:
+    """The mesh warp on CUDA devices: one ring exchange per plane, as device
+    addresses of the halo rows (`ShardedPlane.ring_halo_addresses`), then
+    one block launch per shard, in one device context per run of shards on
+    one device. The checks are made once per plane: a `ShardedPlane`'s bands
+    share their shape and dtype and lie on their shard's device, so what is
+    left is f32 and contiguous rows."""
+    for sp in (strength, *planes):
+        if not (sp.dtype is _F32 and all(b.is_contiguous() for b in sp.bands)):
+            _refuse(f"needs contiguous float32 bands; got {sp}")
+    kx, ky = _k_floats(k)
+    _check_halo(halo, ky)
+    mesh, h = strength.mesh, strength.shape[0]
+    block_h, w = strength.bands[0].shape
+    exchanges = [p.ring_halo_addresses(halo) for p in planes]  # keeps any copies alive
+    mids = [[b.data_ptr() for b in p.bands] for p in planes]
+    strengths = [b.data_ptr() for b in strength.bands]
+    plan = warp_block_plan(kx, ky, block_h, w, h, halo, _aligned(strengths))
+    launch = _BlockLaunch(WARP_BLOCK_KERNEL.entry(), kx, ky, block_h, w, h, halo, plan)
+    per_shard = []
+    j = 0
+    while j < mesh.n:
+        device = mesh.devices[j]
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            while j < mesh.n and mesh.devices[j] == device:
+                per_shard.append(_launch_shard(
+                    launch, stream, [tops[j] for tops, _, _ in exchanges], [m[j] for m in mids],
+                    [bots[j] for _, bots, _ in exchanges], strengths[j], j * block_h,
+                    strength.bands[j]))
+                j += 1
+    return tuple(ShardedPlane(mesh, bands) for bands in zip(*per_shard))
 
 
 def warp_planes_mesh(planes, strength: ShardedPlane, k, halo) -> tuple:
@@ -259,11 +411,13 @@ def warp_planes_mesh(planes, strength: ShardedPlane, k, halo) -> tuple:
         outs = warp_planes([p.gather(first, "warp_gate") for p in planes],
                            strength.gather(first, "warp_gate"), k)
         return tuple(shard_planes_rows(mesh, o) for o in outs)
+    if mesh.device_type == "cuda":
+        return _warp_mesh_cuda(planes, strength, k, halo)
     halos = [p.ring_halos(halo) for p in planes]
     block_h = strength.band_rows
     per_shard = [
-        warp_block([p.bands[j] for p in planes], strength.bands[j], k,
-                   [hs[j][0] for hs in halos], [hs[j][1] for hs in halos], j * block_h, h)
+        warp_block_plain([p.bands[j] for p in planes], strength.bands[j], k,
+                         [hs[j][0] for hs in halos], [hs[j][1] for hs in halos], j * block_h, h)
         for j in range(mesh.n)
     ]
     return tuple(ShardedPlane(mesh, bands) for bands in zip(*per_shard))

@@ -14,7 +14,9 @@ GSPMD partition the program; here the sharding is explicit data:
   sharded kernels: shard `j` receives the last `r` rows of shard `j−1` and
   the first `r` rows of shard `j+1`, wrapping toroidally. Each is a copy to
   the receiving shard's device (a peer copy between two cards, no copy at
-  all when both shards share one), outside any kernel.
+  all when both shards share one), outside any kernel;
+  `ring_halo_addresses(r)` is the same exchange for a kernel that reads a
+  halo in place, by its device address.
 
 The process is single-controller, as in the JAX package: one
 `TextureProcessor` and one `LiveGraph` drive every shard. There are no
@@ -96,7 +98,7 @@ class Mesh:
     """A 1-D device mesh along `axis_name` (`"rows"`): an ordered tuple of
     devices of one type. A device may appear more than once."""
 
-    __slots__ = ("devices",)
+    __slots__ = ("devices", "ring_local")
     axis_name = ROW_AXIS
 
     def __init__(self, devices):
@@ -109,6 +111,9 @@ class Mesh:
                 ErrorKind.GENERIC, f"a mesh mixes device types: {sorted(types)}"
             )
         self.devices = devices
+        # per shard: do its ring neighbours (before, after) share its device?
+        self.ring_local = tuple((devices[j - 1] == d, devices[(j + 1) % len(devices)] == d)
+                                for j, d in enumerate(devices))
 
     @property
     def n(self) -> int:
@@ -230,6 +235,40 @@ class ShardedPlane:
             halos.append((top, bot))
         MESH_COUNTERS.count_exchange()
         return halos
+
+    def ring_halo_addresses(self, r: int) -> tuple:
+        """`ring_halos` for a kernel that takes device addresses: `(tops,
+        bots, copies)`, where `tops[j]` is the address of the first of the
+        `r` rows before shard `j` and `bots[j]` that of the first of the `r`
+        rows after it. A halo on shard `j`'s own device is addressed where
+        it lies, in its neighbour's band: no view is made (each costs
+        microseconds of host time, and four planes over four shards need
+        32). One on another device is copied there as `ring_halos` copies
+        it; `copies` holds those copies, for the caller to keep until its
+        kernels are enqueued. Needs contiguous bands; counted as one
+        exchange."""
+        n, bh = self.mesh.n, self.band_rows
+        if not 1 <= r <= bh:
+            raise TexProError(
+                ErrorKind.GENERIC, f"a ring halo of {r} rows needs blocks of >= {r} rows, got {bh}"
+            )
+        bands = self.bands
+        starts = [b.data_ptr() for b in bands]
+        skip = (bh - r) * bands[0].stride(0) * bands[0].element_size()
+        tops, bots, copies = [], [], []
+        for j, (prev_local, next_local) in enumerate(self.mesh.ring_local):
+            if prev_local:
+                tops.append(starts[j - 1] + skip)
+            else:
+                copies.append(bands[j - 1][bh - r:].to(self.mesh.devices[j]))
+                tops.append(copies[-1].data_ptr())
+            if next_local:
+                bots.append(starts[(j + 1) % n])
+            else:
+                copies.append(bands[(j + 1) % n][:r].to(self.mesh.devices[j]))
+                bots.append(copies[-1].data_ptr())
+        MESH_COUNTERS.count_exchange()
+        return tops, bots, copies
 
     def __repr__(self) -> str:
         return f"ShardedPlane({self.shape}, {self.dtype}, {self.mesh})"

@@ -273,7 +273,7 @@ def test_cuda_warp_block_bit_identical_to_plain(card, payload, n):
         args = ([sp.bands[j] for sp in sps], ss.bands[j], b["k"],
                 [hs[j][0] for hs in halos], [hs[j][1] for hs in halos], j * bh, h)
         before = warp.WARP_BLOCK_KERNEL.launches
-        got = warp.warp_block(*args)
+        got = warp.warp_block_cuda(*args)
         assert warp.WARP_BLOCK_KERNEL.launches == before + 1
         want = warp.warp_block_plain(*args)
         for g, r in zip(got, want):
@@ -313,3 +313,117 @@ def test_mesh_across_four_cards_matches_single_device(card):
     assert np.array_equal(m_u8, s_u8)
     for g, c in zip(m_planes, s_planes):
         assert np.array_equal(g.view(np.int32), c.view(np.int32))
+
+
+def _warp_block_case(card, h, w, n, j, payload, halo=None):
+    """Shard `j` of `n` of an RGBA `h × w` canvas on the card, with ring
+    halos of `halo` rows (default `warp_halo`) and a strength map holding
+    NaN and values outside [0, 1]: the arguments of `warp_block_cuda`."""
+    from kanter_core_tpu_torch.ops import warp
+
+    rng = np.random.default_rng(h * w + j)
+    planes = [torch.from_numpy(rng.random((h, w), dtype=np.float32)).to(card) for _ in range(4)]
+    m = rng.random((h, w), dtype=np.float32) * np.float32(1.6) - np.float32(0.3)
+    m.flat[::7] = np.nan
+    b = warp.warp_bindings(payload)
+    halo = b["halo"] if halo is None else halo
+    bh = h // n
+    rows = torch.arange(j * bh, (j + 1) * bh, device=card)
+    top = (rows[0] - halo + torch.arange(halo, device=card)) % h
+    bot = (rows[-1] + 1 + torch.arange(halo, device=card)) % h
+    return ([p[rows] for p in planes], torch.from_numpy(m).to(card)[rows], b["k"],
+            [p[top] for p in planes], [p[bot] for p in planes], j * bh, h)
+
+
+def _every_block_launch(warp, args):
+    """The planned launch of a block, and others the kernel takes for it:
+    the more general index modes, other tiles, strided pixels with scalar
+    accesses, and adjacent ones with 8-byte accesses where the rows allow."""
+    block_h, w = args[1].shape
+    halo = args[3][0].shape[0]
+    kx, ky = (float(c) for c in np.asarray(args[2], np.float32))
+    aligned = args[1].data_ptr() % 8 == 0
+    plan = warp.warp_block_plan(kx, ky, block_h, w, args[6], halo, aligned)
+    launches = {plan}
+    for mode in range(plan.mode, warp.WARP_GENERAL + 1):
+        for th, tw in ((8, 64), (2, 256), (1, 64), (16, 32)):
+            launches.add(warp.WarpBlockPlan(mode, False, th, tw))
+            if aligned and w % 2 == 0:
+                launches.add(warp.WarpBlockPlan(mode, True, th, tw))
+    return plan, launches
+
+
+# (h, w, shards, shard, payload, halo): the first and last shard, a halo of
+# exactly ceil(|ky|/2) + 2, blocks as tall as the halo, widths 1, 3, 5 and
+# 411, the column gate failing (256×8 at intensity 20, 0°), a window taller
+# than the plane (the row gate), and the main path's block
+_WARP_BLOCK_CASES = [
+    (64, 128, 4, 0, (37.0, 5.0), None), (64, 128, 4, 3, (37.0, 9.0), None),
+    (96, 128, 4, 0, (213.0, 5.0), 4), (32, 64, 4, 0, (37.0, 5.0), None),
+    (64, 64, 8, 7, (37.0, 5.0), None), (64, 1, 4, 1, (37.0, 5.0), None),
+    (64, 3, 4, 3, (90.0, 5.0), None), (64, 5, 4, 0, (37.0, 5.0), None),
+    (96, 411, 4, 3, (37.0, 9.0), None), (256, 8, 4, 0, (0.0, 20.0), None),
+    (256, 8, 4, 3, (0.0, 20.0), None), (24, 32, 2, 1, (37.0, 5.0), None),
+    (4096, 4096, 4, 3, (37.0, 5.0), None), (1024, 1024, 4, 0, (90.0, 64.0), None),
+]
+
+
+@pytest.mark.parametrize("h,w,n,j,payload,halo", _WARP_BLOCK_CASES)
+def test_cuda_warp_block_every_launch_bit_identical(card, h, w, n, j, payload, halo):
+    """Every launch of the block kernel -- both column paths, the general
+    row path, several tiles, scalar and 8-byte accesses -- against the
+    plain version, bit for bit."""
+    from kanter_core_tpu_torch.ops import warp
+
+    args = _warp_block_case(card, h, w, n, j, payload, halo)
+    want = warp.warp_block_plain(*args)
+    plan, launches = _every_block_launch(warp, args)
+    planned = warp.warp_block_plan
+    try:
+        for launch in launches:
+            warp.warp_block_plan = lambda *a, launch=launch: launch
+            got = warp.warp_block_cuda(*args)
+            for g, r in zip(got, want):
+                assert torch.equal(g.view(torch.int32), r.view(torch.int32)), launch
+    finally:
+        warp.warp_block_plan = planned
+
+
+@pytest.mark.parametrize("w", [128, 411])
+def test_cuda_warp_block_halo_views_off_the_16_byte_boundary(card, w):
+    """Blocks and halos that are views into a plane: rows of 411 floats, or
+    of 128 on storage that starts 4 bytes past a 16-byte boundary, with a
+    strength block on the same storage: the launch with strided pixels and
+    scalar accesses, bit-identical to plain."""
+    from kanter_core_tpu_torch.ops import warp
+
+    h, n = 96, 4
+    flat = torch.from_numpy(np.random.default_rng(w).random(4 * h * w + 1, dtype=np.float32))
+    x = flat.to(card)[1:].view(4, h, w)
+    flat_m = np.random.default_rng(1).random(h * w + 1, dtype=np.float32)
+    m = torch.from_numpy(flat_m).to(card)[1:].view(h, w)
+    b = warp.warp_bindings((37.0, 5.0))
+    halo, bh = b["halo"], h // n
+    for j in range(1, n - 1):
+        args = ([p[j * bh:(j + 1) * bh] for p in x], m[j * bh:(j + 1) * bh], b["k"],
+                [p[j * bh - halo:j * bh] for p in x], [p[(j + 1) * bh:(j + 1) * bh + halo] for p in x],
+                j * bh, h)
+        assert args[1].data_ptr() % 8 != 0 and args[3][0].data_ptr() % 16 != 0
+        kx, ky = (float(c) for c in b["k"])
+        assert not warp.warp_block_plan(kx, ky, bh, w, h, halo, False).vec
+        got = warp.warp_block_cuda(*args)
+        for g, r in zip(got, warp.warp_block_plain(*args)):
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+
+
+def test_cuda_warp_block_refuses_mixed_and_cpu_tensors(card):
+    from kanter_core_tpu_torch.ops import warp
+
+    planes, strength, k, tops, bots, row_origin, h = _warp_block_case(
+        card, 64, 128, 4, 0, (37.0, 5.0))
+    with pytest.raises(port.TexProError):
+        warp.warp_block_cuda([*planes[:3], planes[3].cpu()], strength, k, tops, bots,
+                             row_origin, h)
+    with pytest.raises(port.TexProError):
+        warp.warp_block_cuda(planes, strength, k, [tops[0], tops[1].cpu(), *tops[2:]], bots,
+                             row_origin, h)

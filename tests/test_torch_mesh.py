@@ -116,6 +116,56 @@ def test_ring_halos_wrap_toroidally_and_are_counted():
     assert MESH_COUNTERS.snapshot()["gathers"]["host"] == 1
 
 
+@pytest.mark.parametrize("n,r", [(4, 3), (4, 6), (2, 1)])
+def test_ring_halo_addresses_are_the_ring_halos_in_place(n, r):
+    """On one device the exchange by address is the exchange by view: each
+    address is where `ring_halos`' view of the neighbour's rows starts, no
+    copy is made, and it counts as one exchange."""
+    plane = torch.from_numpy(_plane(24, 5, 1))
+    sp = shard_planes_rows(_cpu_mesh(n), plane)
+    views = sp.ring_halos(r)
+    MESH_COUNTERS.reset()
+    tops, bots, copies = sp.ring_halo_addresses(r)
+    assert MESH_COUNTERS.snapshot()["exchanges"] == 1 and copies == []
+    assert tops == [top.data_ptr() for top, _ in views]
+    assert bots == [bot.data_ptr() for _, bot in views]
+    with pytest.raises(port.TexProError):
+        sp.ring_halo_addresses(24 // n + 1)
+
+
+@pytest.mark.parametrize("n,r,layout", [
+    (4, 3, "two devices"), (4, 2, "every shard apart"), (2, 1, "every shard apart"),
+])
+def test_ring_halo_addresses_copy_across_devices(n, r, layout):
+    """Where a neighbour lies on another device, its rows are copied to the
+    shard's device, the address is the copy's and `copies` holds the copy,
+    with the neighbour's rows in it; a neighbour on the shard's own device is
+    still addressed in place. One exchange either way. A CPU mesh stands in
+    for several cards: `ring_local` says which neighbours are apart, and
+    `cpu:0` is a device whose `.to` copies."""
+    plane = torch.from_numpy(_plane(24, 5, 1))
+    sp = shard_planes_rows(_cpu_mesh(n), plane)
+    views = sp.ring_halos(r)
+    label = [j * 2 // n for j in range(n)] if layout == "two devices" else list(range(n))
+    local = tuple((label[j - 1] == label[j], label[(j + 1) % n] == label[j]) for j in range(n))
+    sp.mesh.ring_local = local
+    sp.mesh.devices = (torch.device("cpu", 0),) * n
+    MESH_COUNTERS.reset()
+    tops, bots, copies = sp.ring_halo_addresses(r)
+    assert MESH_COUNTERS.snapshot()["exchanges"] == 1
+    kept = iter(copies)
+    for j, (prev_local, next_local) in enumerate(local):
+        for address, view, is_local in ((tops[j], views[j][0], prev_local),
+                                        (bots[j], views[j][1], next_local)):
+            if is_local:
+                assert address == view.data_ptr()
+            else:
+                copy = next(kept)
+                assert address == copy.data_ptr() != view.data_ptr()
+                assert torch.equal(copy, view) and copy.is_contiguous()
+    assert next(kept, None) is None
+
+
 @pytest.mark.parametrize("route", ["map_bands", "warp_strength", "warp_plane"])
 def test_dense_full_plane_meeting_a_sharded_one_raises(route):
     """Nothing shards a plane quietly: a dense full-size plane beside a
