@@ -81,11 +81,28 @@ Phases, each of which raises (exit code != 0) on failure:
    evaluation and per export, one per plane read back by this script, and
    0 for every other cause;
 9. mesh on the card vs mesh on the CPU: both sequences at 1024² over four
-   shards; u8 identical, 0 f32 mismatches.
+   shards; u8 identical, 0 f32 mismatches;
+10. the per-node route (`ops.process_node`, node by node from the engine's
+   worker threads): the PBR sequence of phase 4 at 4096² under
+   `auto_update=True` (every dirty node re-renders; each read group waits
+   until the whole graph is Clean) and the flagship sequence of phase 5 at
+   4096² with `fuse_subgraphs=False`, both keeping every node's data;
+   every read's u8 export and f32 planes bit-identical to the fused
+   route's same read of phases 4 and 5; counters set to 0 just before each
+   sequence, and the blur, JFA (step and near, from `jfa_launch_plan`)
+   and warp launches after each read group exactly those derived from the
+   graph (`Session.expect_pernode`: the nodes each read group evaluates,
+   the plane counts of their committed inputs); then the per-node flagship
+   over four shards against the per-node single-device run (block
+   launches 4× the dense ones, gathers as in phase 8), and card vs CPU
+   at 1024² for the per-node flagship and for the per-node PBR sequence on
+   the default `use_cache=False`. The per-node read times are printed
+   beside the fused route's.
 
 The third-to-last line ranks the kernels by launches × (ms − bound) over
-the four sequences, the second-to-last is a JSON object describing the
-kernels, the last line is `{"ok": true, "device": {...}}`.
+the seven sequences, the second-to-last is a JSON object describing the
+kernels (`launches` summed over the fused, mesh and per-node sequences),
+the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -505,14 +522,14 @@ class Session:
     `counts` the launch counters after each read group and `mesh_counts`
     the mesh counters; `mesh` shards the processor."""
 
-    def __init__(self, device, n, graph, bound, timed, keep=False, mesh=None):
+    def __init__(self, device, n, graph, bound, timed, keep=False, mesh=None, route="fused"):
         import torch
         from kanter_core_tpu_torch import SlotData, SlotId, SlotImage, TextureProcessor
         from kanter_core_tpu_torch.convert import planes_from_numpy
 
         self.torch, self.SlotId, self.TP = torch, SlotId, TextureProcessor
-        self.n, self.timed, self.mesh = n, timed, mesh
-        self.results, self.counts, self.mesh_counts = [], [], []
+        self.n, self.timed, self.mesh, self.route = n, timed, mesh, route
+        self.results, self.counts, self.mesh_counts, self.times = [], [], [], []
         self.planes_read = 0
         self.tp = TextureProcessor(memory_threshold=16 << 30, device=device, mesh=mesh)
         if timed:
@@ -521,6 +538,10 @@ class Session:
         self.lg = self.tp.new_live_graph()
         with self.lg.write() as g:
             g.use_cache = keep
+            # the per-node route: "auto_update" (every dirty node re-renders)
+            # or "no_fuse" (`fuse_subgraphs=False`); "fused" is the default
+            g.auto_update = route == "auto_update"
+            g.fuse_subgraphs = route == "fused"
             g.set_node_graph(graph)
             for node_id, plane in bound:
                 (plane,) = planes_from_numpy([plane], self.tp.device)
@@ -546,9 +567,13 @@ class Session:
             if not all(p.shape == (n, n) and np.isfinite(p).all() for p in planes):
                 raise AssertionError(f"{name}: non-finite values or a wrong shape")
             self.results.append((label, name, planes, px))
+            self.times.append((label, name, ms))
             if self.timed:
                 where = "" if self.tp.mesh is None else " mesh"
-                log(f"slice{where} {n}x{n} {label} read {name}: {ms:.3f} ms wall")
+                route = "" if self.route == "fused" else f" {self.route}"
+                log(f"slice{where}{route} {n}x{n} {label} read {name}: {ms:.3f} ms wall")
+        if self.route == "auto_update":
+            self.settle()
         self.counts.append(launch_counts())
         self.by_sigma = blur_launches_by_sigma()
         if self.tp.mesh is not None:
@@ -556,6 +581,60 @@ class Session:
 
             self.mesh_counts.append(dict(MESH_COUNTERS.snapshot(), planes_read=self.planes_read,
                                          reads=len(self.results)))
+
+    def settle(self, timeout: float = 600.0) -> None:
+        """Wait until every node is Clean: under `auto_update` the nodes no
+        read asked for render on their own, and their launches belong to
+        this read group."""
+        from kanter_core_tpu_torch import NodeState
+
+        deadline = time.monotonic() + timeout
+        while True:
+            with self.lg.read() as g:
+                if g.fatal_error is not None:
+                    raise g.fatal_error
+                if all(st == NodeState.CLEAN for st in g.node_states().values()):
+                    break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{self.route}: the graph did not settle in {timeout} s")
+            time.sleep(0.001)
+        if self.tp.device.type == "cuda":
+            self.torch.cuda.synchronize()
+
+    def expect_pernode(self, groups) -> list:
+        """The kernel launches the per-node route must make, cumulative per
+        read group, derived from the graph and the committed planes (the
+        session keeps every node's data): `groups` holds, per read group,
+        the ids of the nodes the route evaluates. A Blur node launches the
+        blur kernel once per plane of its input, an AmbientOcclusion node
+        three times, a Distance node one ladder of `jfa_launch_plan` for its
+        input's size, a Warp node with a strength input once per group of
+        up to four planes of its image."""
+        from kanter_core_tpu_torch import NodeTypeKind as K
+
+        distance = kernels()[1]
+        g = self.lg.node_graph
+        total = dict.fromkeys(("blur", "jfa", "jfa_near", "warp"), 0)
+        out = []
+        for group in groups:
+            for node_id in sorted(group):
+                kind = g.node(node_id).node_type.kind
+                edges = {int(e.input_slot): e for e in g.edges if e.input_id == node_id}
+                if kind not in (K.BLUR, K.AMBIENT_OCCLUSION, K.DISTANCE, K.WARP) or 0 not in edges:
+                    continue
+                image = self.lg.slot_data(edges[0].output_id, edges[0].output_slot).image
+                if kind == K.BLUR:
+                    total["blur"] += len(image.planes)
+                elif kind == K.AMBIENT_OCCLUSION:
+                    total["blur"] += 3
+                elif kind == K.DISTANCE:
+                    h, w = image.planes[0].shape
+                    for launch in distance.jfa_launch_plan(h, w):
+                        total["jfa" if launch.entry == "step" else "jfa_near"] += 1
+                elif 1 in edges:
+                    total["warp"] += -(-len(image.planes) // 4)
+            out.append(dict(total))
+        return out
 
     def node(self, kind, pred=lambda p: True):
         return next(x.node_id for x in self.lg.node_graph.nodes
@@ -589,7 +668,52 @@ class Session:
         gc.collect()
 
 
-def drive_pbr(device: str, n: int, seed: int = 0, timed: bool = False, mesh=None):
+def closure(graph, start, up: bool) -> set:
+    """`start` and all its ancestors (`up`) or descendants."""
+    seen, stack = set(), list(start)
+    while stack:
+        node_id = stack.pop()
+        if node_id in seen:
+            continue
+        seen.add(node_id)
+        stack.extend(graph.get_parents(node_id) if up else graph.get_children(node_id))
+    return seen
+
+
+def pernode_groups(s, edits) -> list:
+    """Per read group, the nodes the session's per-node route evaluates: the
+    render evaluates every node (`auto_update`) or the outputs read and
+    their ancestors (`no_fuse`); an edit evaluates the edited node and its
+    descendants, under `no_fuse` only those the reads reach. `edits` holds
+    the edited node of each later group."""
+    graph = s.lg.node_graph
+    every = {n.node_id for n in graph.nodes}
+    reached = every
+    if s.route == "no_fuse":
+        reached = closure(graph, [s.outputs[name] for _, name, _ in s.times], up=True)
+    return [reached] + [closure(graph, [x], up=False) & reached for x in edits]
+
+
+def check_pernode(label, s) -> None:
+    """The per-node session's launch counts, per read group, against those
+    derived from its graph (`Session.expect_pernode`); the block kernels 0."""
+    want = s.pernode_expected
+    got = [{k: c[k] for k in ("blur", "jfa", "jfa_near", "warp")} for c in s.counts]
+    log(f"per-node {label} launches after each read group: {got}, derived from the graph: {want}")
+    if got != want or any(c["blur_block"] or c["warp_block"] for c in s.counts):
+        raise AssertionError(f"per-node {label}: launches {s.counts}, want {want}")
+
+
+def log_read_times(label, fused, pernode) -> None:
+    """Each read's wall time on the fused and the per-node route, side by
+    side."""
+    rows = [f"{step} {name} {a:.3f}/{b:.3f}"
+            for (step, name, a), (_, _, b) in zip(fused.times, pernode.times)]
+    log(f"read ms fused/{pernode.route} {label} {fused.n}x{fused.n}: " + ", ".join(rows))
+
+
+def drive_pbr(device: str, n: int, seed: int = 0, timed: bool = False, mesh=None,
+              route: str = "fused", keep: bool = False):
     """Render pbr_material_graph at n² on `device` (sharded over `mesh`),
     then the Value edit and the sigma edit. Returns the session."""
     from kanter_core_tpu_torch import NodeType, NodeTypeKind
@@ -598,7 +722,7 @@ def drive_pbr(device: str, n: int, seed: int = 0, timed: bool = False, mesh=None
     graph = pbr_material_graph()
     (inp,) = [x.node_id for x in graph.nodes if x.node_type.kind == NodeTypeKind.INPUT_GRAY]
     height = np.random.default_rng(seed).random((n, n), dtype=np.float32)
-    s = Session(device, n, graph, [(inp, height)], timed, mesh=mesh)
+    s = Session(device, n, graph, [(inp, height)], timed, keep=keep, mesh=mesh, route=route)
     try:
         ao_strength = s.node(NodeTypeKind.VALUE, lambda p: p == 0.75)
         ao_blur = s.node(NodeTypeKind.BLUR, lambda p: p == 6.0)
@@ -611,12 +735,14 @@ def drive_pbr(device: str, n: int, seed: int = 0, timed: bool = False, mesh=None
         s.lg.set_blur_sigma(ao_blur, 4.0)
         s.read("sigma-edit", ["ao", "roughness"])
         s.finish()
+        if route != "fused" and keep:
+            s.pernode_expected = s.expect_pernode(pernode_groups(s, [ao_strength, ao_blur]))
     finally:
         s.close()
     return s
 
 
-def drive_flagship(device: str, n: int, timed: bool = False, mesh=None):
+def drive_flagship(device: str, n: int, timed: bool = False, mesh=None, route: str = "fused"):
     """Render the flagship's `out` at n² on `device` (sharded over `mesh`),
     then the chain Value edit, the Distance edit and the Warp edit,
     re-reading after each. Returns the session."""
@@ -630,7 +756,7 @@ def drive_flagship(device: str, n: int, timed: bool = False, mesh=None):
     # default, a clean parent's planes are dropped once its children are done
     # and come back from the recipe cache, whose 1 GiB budget holds only 16
     # planes of 4096², so an edit would re-run Distance and AO
-    s = Session(device, n, graph, bound, timed, keep=True, mesh=mesh)
+    s = Session(device, n, graph, bound, timed, keep=True, mesh=mesh, route=route)
     try:
         v = s.node(NodeTypeKind.VALUE, lambda p: p != 1.0)
         dist = s.node(NodeTypeKind.DISTANCE)
@@ -646,6 +772,8 @@ def drive_flagship(device: str, n: int, timed: bool = False, mesh=None):
         s.lg.set_warp(warp, 37.0, 9.0)
         s.read("warp-edit", ["out"])
         s.finish()
+        if route != "fused":
+            s.pernode_expected = s.expect_pernode(pernode_groups(s, [v, dist, warp]))
     finally:
         s.close()
     return s
@@ -902,7 +1030,7 @@ def check_mesh_run(label, single, sharded) -> None:
 
 
 def gap_ranking(entries) -> list:
-    """For each kernel: over the four sequences, launches × (ms − bound) in
+    """For each kernel: over the seven sequences, launches × (ms − bound) in
     ms, the time a perfect kernel would give back; largest first. A blur
     launch takes the timing of its own sigma, a far JFA launch the mean far
     step, the near launch the near run."""
@@ -1035,7 +1163,7 @@ def main() -> int:
     check_mesh_run("flagship", flag, mesh_flag)
     mesh_flag_path, mesh_flag_sigmas = mesh_flag.counts[-1], mesh_flag.by_sigma
     compare_runs("flagship", mesh_flag.results, flag.results, "mesh vs single device")
-    del pbr, flag, mesh_pbr, mesh_flag
+    del mesh_pbr
     phase_done("mesh slices")
 
     # 9. mesh on the card against mesh on the CPU at 1024²
@@ -1046,18 +1174,52 @@ def main() -> int:
                  drive_flagship("cpu", 1024, mesh=cpu_mesh).results, "mesh card vs mesh cpu")
     phase_done("mesh card vs cpu")
 
+    # 10. the per-node route: the PBR sequence under auto_update and the
+    # flagship sequence with fuse_subgraphs=False at full size, counters from
+    # 0 before each; every read bit-identical to the fused route's (phases 4
+    # and 5), the launches those derived from the graph; the flagship's over
+    # four shards against one device; card vs CPU at 1024²
+    pn_pbr = drive_pbr("cuda", CANVAS, timed=True, route="auto_update", keep=True)
+    check_pernode("pbr", pn_pbr)
+    compare_runs("pbr", pn_pbr.results, pbr.results, "per-node vs fused")
+    log_read_times("pbr", pbr, pn_pbr)
+    pn_flag = drive_flagship("cuda", CANVAS, timed=True, route="no_fuse")
+    check_pernode("flagship", pn_flag)
+    compare_runs("flagship", pn_flag.results, flag.results, "per-node vs fused")
+    log_read_times("flagship", flag, pn_flag)
+    mesh_pn_flag = drive_flagship("cuda", CANVAS, timed=True, mesh=mesh, route="no_fuse")
+    check_mesh_run("per-node flagship", pn_flag, mesh_pn_flag)
+    compare_runs("flagship", mesh_pn_flag.results, pn_flag.results, "per-node mesh vs single device")
+    log_read_times("mesh flagship", mesh_flag, mesh_pn_flag)
+    pn_pbr_path, pn_pbr_sigmas = pn_pbr.counts[-1], pn_pbr.by_sigma
+    pn_flag_path, pn_flag_sigmas = pn_flag.counts[-1], pn_flag.by_sigma
+    mesh_pn_path, mesh_pn_sigmas = mesh_pn_flag.counts[-1], mesh_pn_flag.by_sigma
+    del pbr, flag, mesh_flag, pn_pbr, pn_flag, mesh_pn_flag
+    compare_runs("flagship", drive_flagship("cuda", 1024, route="no_fuse").results,
+                 drive_flagship("cpu", 1024, route="no_fuse").results, "per-node card vs cpu")
+    # the PBR graph's default use_cache=False: parents' planes dropped once
+    # their children are done, while siblings still read them
+    compare_runs("pbr", drive_pbr("cuda", 1024, route="auto_update").results,
+                 drive_pbr("cpu", 1024, route="auto_update").results, "per-node card vs cpu")
+    phase_done("per-node")
+
+    paths = {"pbr": (pbr_path, pbr_sigmas), "flagship": (flag_path, flag_sigmas),
+             "mesh_pbr": (mesh_pbr_path, mesh_pbr_sigmas),
+             "mesh_flagship": (mesh_flag_path, mesh_flag_sigmas),
+             "pernode_pbr": (pn_pbr_path, pn_pbr_sigmas),
+             "pernode_flagship": (pn_flag_path, pn_flag_sigmas),
+             "pernode_mesh_flagship": (mesh_pn_path, mesh_pn_sigmas)}
+
     def by_path(key):
-        return {"pbr": pbr_path[key], "flagship": flag_path[key],
-                "mesh_pbr": mesh_pbr_path[key], "mesh_flagship": mesh_flag_path[key]}
+        return {name: counts[key] for name, (counts, _) in paths.items()}
 
     def by_sigma(key):
-        return {"pbr": pbr_sigmas[key], "flagship": flag_sigmas[key],
-                "mesh_pbr": mesh_pbr_sigmas[key], "mesh_flagship": mesh_flag_sigmas[key]}
+        return {name: sigmas[key] for name, (_, sigmas) in paths.items()}
 
-    def entry(name, source, replaces, launches, phase, main, key):
+    def entry(name, source, replaces, phase, main, key):
         e = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "launches_by_path": by_path(key),
+            "launches": sum(by_path(key).values()), "launches_by_path": by_path(key),
             "max_abs_err": phase["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1070,24 +1232,24 @@ def main() -> int:
     entries = [
         entry("kanter_blur_wrap_f32", "kanter_core_tpu_torch/csrc/blur.cu",
               "kanter_core_tpu/ops/pallas_blur.py:77",
-              pbr_path["blur"] + flag_path["blur"], blur,
+              blur,
               next(t for t in blur["timings"] if t["sigma"] == 6.0), "blur"),
         entry("kanter_jfa_step_i32", "kanter_core_tpu_torch/csrc/jfa.cu",
               "kanter_core_tpu/ops/pallas_distance.py:90",
-              flag_path["jfa"], jfa, jfa["timings"][-1], "jfa"),
+              jfa, jfa["timings"][-1], "jfa"),
         entry("kanter_jfa_near_i32", "kanter_core_tpu_torch/csrc/jfa.cu",
               "kanter_core_tpu/ops/pallas_distance.py:90",
-              flag_path["jfa_near"], jfa_near, jfa_near["timings"][-1], "jfa_near"),
+              jfa_near, jfa_near["timings"][-1], "jfa_near"),
         entry("kanter_warp_bilinear_f32", "kanter_core_tpu_torch/csrc/warp.cu",
               "kanter_core_tpu/ops/pallas_warp.py:147",
-              flag_path["warp"], warp, warp["timings"][0], "warp"),
+              warp, warp["timings"][0], "warp"),
         entry("kanter_blur_block_f32", "kanter_core_tpu_torch/csrc/blur.cu",
               "kanter_core_tpu/ops/pallas_blur.py:419",
-              mesh_pbr_path["blur_block"] + mesh_flag_path["blur_block"], blur_block,
+              blur_block,
               next(t for t in blur_block["timings"] if t["sigma"] == 6.0), "blur_block"),
         entry("kanter_warp_block_f32", "kanter_core_tpu_torch/csrc/warp.cu",
               "kanter_core_tpu/ops/pallas_warp.py:306",
-              mesh_flag_path["warp_block"], warp_block, warp_block["timings"][0],
+              warp_block, warp_block["timings"][0],
               "warp_block"),
     ]
     for e in entries:

@@ -9,8 +9,9 @@ TPU kernel becomes a CUDA kernel whose plain torch version serves the CPU.
 
 This package never imports JAX or `kanter_core_tpu`.
 
-Ported so far: the fused route from `TextureProcessor` through `LiveGraph`
-to `buffer_rgba`, for the node kinds Value, InputGray/InputRgba,
+Ported so far: the fused route and the per-node route (taken under
+`auto_update` and with `fuse_subgraphs=False`) from `TextureProcessor`
+through `LiveGraph` to `buffer_rgba`, for the node kinds Value, InputGray/InputRgba,
 OutputGray/OutputRgba, Mix (every mode but POW), HeightToNormal,
 SeparateRgba, CombineRgba, Embed, Blur (CUDA kernel `csrc/blur.cu`), Noise,
 Pattern, Voronoi, Ramp, Curvature, AmbientOcclusion, Hsv, Distance (CUDA

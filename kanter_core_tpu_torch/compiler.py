@@ -29,6 +29,10 @@ shard by shard, the stencils (HeightToNormal, Curvature) and the Blur and
 Warp kernels exchange ring halos, and Distance gathers (see the ops). The
 results are bit-identical to the single-device evaluator.
 
+Each node's rules (defaults, aliases, type checks, where constant and
+procedural planes are made) are the op modules', which the per-node route
+(`ops.process_node`) calls too.
+
 Not carried over: `_const_guard` and the `optimization_barrier` shims, which
 keep XLA's constant folder away from constant planes — eager torch does not
 fold. Node kinds whose ops are not yet ported (Image, Graph, Write, Levels,
@@ -50,20 +54,21 @@ from .ids import NodeId, SlotId
 from .node import NodeTypeKind
 from .node_graph import NodeGraph
 from .ops.ambient_occlusion import ao_plane
-from .ops.blur import blur_plane
+from .ops.blur import blur_images
+from .ops.common import Placement, connected_input, gray_input, not_ported
 from .ops.curvature import curvature_plane
 from .ops.distance import distance_plane
 from .ops.height_to_normal import h2n_planes
 from .ops.hsv import hsv_bindings, hsv_planes
-from .ops.mix import _binary
-from .ops.noise import noise_bindings, noise_plane
-from .ops.pattern import pattern_bindings, pattern_planes
-from .ops.ramp import ramp_bindings, ramp_plane
+from .ops.inout import no_outer_input, output_planes, value_plane
+from .ops.mix import mix_images
+from .ops.noise import noise_bindings, noise_source
+from .ops.pattern import pattern_bindings, pattern_source
+from .ops.ramp import ramp_bindings, ramp_source
 from .ops.resize import calculate_size, resample_any
-from .ops.voronoi import voronoi_bindings, voronoi_planes
-from .ops.warp import warp_bindings, warp_planes
-from .parallel.sharded import ShardedPlane, map_bands
-
+from .ops.separate_combine import combine_planes, separate_planes
+from .ops.voronoi import voronoi_bindings, voronoi_source
+from .ops.warp import warp_bindings, warp_images
 
 def _topo_order(graph) -> list:
     """Iterative post-order topological sort (parents before children)."""
@@ -123,28 +128,6 @@ class _SymData:
         return self.img.size
 
 
-def _as_type(img: ImgVal, rgba: bool) -> ImgVal:
-    if img.is_rgba == rgba:
-        return img
-    if rgba:
-        g = img.planes[0]
-        return ImgVal([g, g, g, map_bands(torch.ones_like, g)])
-    return ImgVal([map_bands(_rgb_mean, *img.planes[:3])])
-
-
-def _rgb_mean(r, g, b):
-    s = (r + g) + b
-    # a full-tensor divisor: a scalar divisor may become a reciprocal
-    # multiply on CUDA and round differently from the reference's division
-    return s / torch.full_like(s, 3.0)
-
-
-def _not_ported(kind) -> TexProError:
-    return TexProError(
-        ErrorKind.NODE_PROCESSING, f"{kind.value} nodes are not yet ported"
-    )
-
-
 class GraphCompiler:
     """Evaluates a NodeGraph's nodes in topological order on `device`, or
     row-sharded over `mesh` (whose first device is then `device`)."""
@@ -152,35 +135,12 @@ class GraphCompiler:
     def __init__(self, node_graph: NodeGraph, device: torch.device, preset=None, mesh=None):
         self.node_graph = node_graph
         self.mesh = mesh
-        self.device = mesh.devices[0] if mesh is not None else torch.device(device)
+        self.place = Placement(device, mesh)
+        self.device = self.place.device
         # preset: {(NodeId, SlotId): n_planes} — nodes whose outputs are
         # already computed (clean boundary of a dirty partition); their
         # planes are arguments instead of being re-evaluated.
         self.preset = dict(preset or {})
-
-    def _full(self, shape, value: float):
-        """A constant plane, row-sharded when its rows shard over the mesh."""
-        h, w = shape
-        if self.mesh is not None and self.mesh.shardable(h):
-            bh = h // self.mesh.n
-            return ShardedPlane(self.mesh, [
-                torch.full((bh, w), float(value), dtype=torch.float32, device=d)
-                for d in self.mesh.devices
-            ])
-        return torch.full(shape, float(value), dtype=torch.float32, device=self.device)
-
-    def _zeros(self, shape):
-        return self._full(shape, 0.0)
-
-    def _ones(self, shape):
-        return self._full(shape, 1.0)
-
-    def _from_value(self, size: Size, value: float, rgba: bool) -> ImgVal:
-        shape = (size.height, size.width)
-        plane = self._full(shape, value)
-        if rgba:
-            return ImgVal([plane, plane, plane, self._ones(shape)])
-        return ImgVal([plane])
 
     def _eval_graph(self, graph: NodeGraph, args: dict) -> dict:
         """Returns {(node_id, slot_id): ImgVal} for every node in `graph`."""
@@ -236,215 +196,97 @@ class GraphCompiler:
         return values
 
     def _emit(self, node, by_slot: dict, args):
+        """The node's `[(output SlotId, ImgVal)]` from its inputs' ImgVals by
+        input slot. The rules are the op modules', shared with the per-node
+        route (`ops.process_node`)."""
         K = NodeTypeKind
         kind = node.node_type.kind
         nid = int(node.node_id)
+        place = self.place
+        planes = {slot: img.planes for slot, img in by_slot.items()}
+        inp = planes.get(SlotId(0))
+
+        def one(out_planes):
+            return [(SlotId(0), ImgVal(out_planes))]
 
         if kind == K.VALUE:
             # scalar argument → 1×1 plane
-            val = args[f"value_{nid}"]
-            return [(SlotId(0), ImgVal([
-                torch.full((1, 1), float(val), dtype=torch.float32, device=self.device)
-            ]))]
+            return one([value_plane(args[f"value_{nid}"], self.device)])
 
-        if kind in (K.INPUT_GRAY, K.INPUT_RGBA):
-            if kind == K.INPUT_RGBA:
-                if "input_rgba_first" not in args:
-                    raise TexProError(ErrorKind.NODE_PROCESSING, "InputRgba with no outer input")
-                img = args["input_rgba_first"]
-            else:
-                key = f"input_{nid}"
-                if key not in args:
-                    raise TexProError(
-                        ErrorKind.INVALID_BUFFER_COUNT,
-                        f"InputGray node {nid} has no bound input",
-                    )
-                img = args[key]
-            return [(SlotId(0), ImgVal(list(img)))]
+        if kind == K.INPUT_RGBA:
+            if "input_rgba_first" not in args:
+                raise no_outer_input()
+            return one(list(args["input_rgba_first"]))
+
+        if kind == K.INPUT_GRAY:
+            key = f"input_{nid}"
+            if key not in args:
+                raise TexProError(
+                    ErrorKind.INVALID_BUFFER_COUNT, f"InputGray node {nid} has no bound input"
+                )
+            return one(list(args[key]))
 
         if kind in (K.OUTPUT_GRAY, K.OUTPUT_RGBA):
-            if by_slot:
-                return [(SlotId(0), by_slot[min(by_slot)])]
-            if kind == K.OUTPUT_RGBA:
-                z = self._zeros((1, 1))
-                return [(SlotId(0), ImgVal([z, z, z, self._ones((1, 1))]))]
-            return [(SlotId(0), ImgVal([self._zeros((1, 1))]))]
+            connected = planes[min(planes)] if planes else None
+            return one(output_planes(connected, kind == K.OUTPUT_RGBA, place))
 
         if kind == K.MIX:
-            left, right = by_slot.get(SlotId(0)), by_slot.get(SlotId(1))
-            op = _binary(node.node_type.payload)
-            if left is not None:
-                rgba = left.is_rgba
-                right = (
-                    _as_type(right, rgba)
-                    if right is not None
-                    else self._from_value(left.size, 0.0, rgba)
-                )
-            elif right is not None:
-                left = self._from_value(right.size, 0.0, right.is_rgba)
-            else:
-                return [(SlotId(0), ImgVal([self._zeros((1, 1))]))]
-            if left.is_rgba:
-                planes = [map_bands(op, left.planes[i], right.planes[i]) for i in range(3)]
-                planes.append(map_bands(torch.ones_like, planes[0]))
-            else:
-                planes = [map_bands(op, left.planes[0], right.planes[0])]
-            return [(SlotId(0), ImgVal(planes))]
+            return one(mix_images(node.node_type.payload, inp, planes.get(SlotId(1)), place))
 
         if kind == K.HEIGHT_TO_NORMAL:
-            inp = by_slot.get(SlotId(0))
-            if inp is None or inp.is_rgba:
-                raise TexProError(
-                    ErrorKind.INVALID_BUFFER_COUNT, "HeightToNormal needs a Gray input"
-                )
-            return [(SlotId(0), ImgVal(list(h2n_planes(inp.planes[0]))))]
+            return one(list(h2n_planes(gray_input(inp, "HeightToNormal"))))
 
         if kind == K.BLUR:
-            inp = by_slot.get(SlotId(0))
-            if inp is None:
-                raise TexProError(
-                    ErrorKind.INVALID_BUFFER_COUNT, "Blur needs an input"
-                )
-            sigma = node.node_type.payload
-            return [(SlotId(0), ImgVal([blur_plane(p, sigma) for p in inp.planes]))]
+            return one(blur_images(inp, node.node_type.payload))
 
         if kind == K.SEPARATE_RGBA:
-            inp = by_slot.get(SlotId(0))
-            if inp is not None and inp.is_rgba:
-                return [(SlotId(i), ImgVal([inp.planes[i]])) for i in range(4)]
-            return [(SlotId(i), ImgVal([self._zeros((1, 1))])) for i in range(4)]
+            return [(SlotId(i), ImgVal(p)) for i, p in enumerate(separate_planes(inp, place))]
 
         if kind == K.COMBINE_RGBA:
-            size = by_slot[min(by_slot)].size if by_slot else Size(1, 1)
-            shape = (size.height, size.width)
-            shared_zero = None
-
-            def plane_of(slot):
-                img = by_slot.get(SlotId(slot))
-                if img is not None and img.is_rgba:
-                    # matches the eager op's fatal error (`combine_rgba.rs:22-25`)
-                    raise TexProError(
-                        ErrorKind.INVALID_SLOT_TYPE,
-                        "RGBA image connected to a CombineRgba input slot",
-                    )
-                return None if img is None else img.planes[0]
-
-            colors = []
-            for slot in range(3):
-                plane = plane_of(slot)
-                if plane is None:
-                    if shared_zero is None:
-                        shared_zero = self._zeros(shape)
-                    plane = shared_zero
-                colors.append(plane)
-            alpha = plane_of(3)
-            if alpha is None:
-                alpha = self._ones(shape)
-            return [(SlotId(0), ImgVal([*colors, alpha]))]
+            return one(combine_planes(planes, place))
 
         if kind == K.EMBED:
-            planes = args.get(f"embed_{int(node.node_type.payload)}")
-            if planes is None:
+            embedded = args.get(f"embed_{int(node.node_type.payload)}")
+            if embedded is None:
                 raise TexProError(
                     ErrorKind.INVALID_BUFFER_COUNT,
                     f"no embedded slot data with id {int(node.node_type.payload)}",
                 )
-            return [(SlotId(0), ImgVal(list(planes)))]
+            return one(list(embedded))
 
         if kind == K.HSV:
-            inp = by_slot.get(SlotId(0))
-            if inp is None:
-                raise TexProError(ErrorKind.INVALID_BUFFER_COUNT, "Hsv needs an input")
-            return [(SlotId(0), ImgVal(hsv_planes(inp.planes, args[f"hsv_{nid}"])))]
+            return one(hsv_planes(connected_input(inp, "Hsv"), args[f"hsv_{nid}"]))
 
         if kind == K.CURVATURE:
-            inp = self._gray_input(by_slot, "Curvature")
-            return [(SlotId(0), ImgVal([curvature_plane(inp, args[f"curv_{nid}"])]))]
+            return one([curvature_plane(gray_input(inp, "Curvature"), args[f"curv_{nid}"])])
 
         if kind == K.DISTANCE:
-            inp = self._gray_input(by_slot, "Distance")
-            return [(SlotId(0), ImgVal([distance_plane(inp, args[f"dist_{nid}"])]))]
+            return one([distance_plane(gray_input(inp, "Distance"), args[f"dist_{nid}"])])
 
         if kind == K.AMBIENT_OCCLUSION:
-            inp = self._gray_input(by_slot, "AmbientOcclusion")
             radius = node.node_type.payload[1]
-            return [(SlotId(0), ImgVal([ao_plane(inp, args[f"ao_{nid}"], radius)]))]
+            plane = gray_input(inp, "AmbientOcclusion")
+            return one([ao_plane(plane, args[f"ao_{nid}"], radius)])
 
         if kind == K.NOISE:
-            b = args[f"noise_{nid}"]
-            plane = self._source(
-                lambda rows, cols: noise_plane(
-                    rows, cols, b["seed"], b["persistence"], b["fx"], b["fy"], b["periods"],
-                ), b["rows"], b["cols"],
-            )
-            return [(SlotId(0), ImgVal([plane]))]
+            return one([noise_source(args[f"noise_{nid}"], place)])
 
         if kind == K.PATTERN:
-            b = args[f"pattern_{nid}"]
-            kind_name = node.node_type.payload[2]  # the kind is structure, not an argument
-            mask, cells = self._source(
-                lambda rows, cols: pattern_planes(
-                    kind_name, rows, cols, b["fx"], b["fy"], b["px"], b["py"],
-                    b["mortar"], b["bevel"], b["seed"],
-                ), b["rows"], b["cols"],
-            )
+            # the kind is structure, not an argument
+            mask, cells = pattern_source(node.node_type.payload[2], args[f"pattern_{nid}"], place)
             return [(SlotId(0), ImgVal([mask])), (SlotId(1), ImgVal([cells]))]
 
         if kind == K.VORONOI:
-            b = args[f"voronoi_{nid}"]
-            planes = self._source(
-                lambda rows, cols: voronoi_planes(
-                    rows, cols, b["fx"], b["fy"], b["px"], b["py"], b["jitter"], b["seed"],
-                ), b["rows"], b["cols"],
-            )
-            return [(SlotId(i), ImgVal([p])) for i, p in enumerate(planes)]
+            outs = voronoi_source(args[f"voronoi_{nid}"], place)
+            return [(SlotId(i), ImgVal([p])) for i, p in enumerate(outs)]
 
         if kind == K.RAMP:
-            b = args[f"ramp_{nid}"]
-            kind_name = node.node_type.payload[2]  # the kind is structure
-            plane = self._source(
-                lambda rows, cols: ramp_plane(kind_name, rows, cols, b["iw"], b["ih"], b["k"]),
-                b["rows"], b["cols"],
-            )
-            return [(SlotId(0), ImgVal([plane]))]
+            return one([ramp_source(node.node_type.payload[2], args[f"ramp_{nid}"], place)])
 
         if kind == K.WARP:
-            inp = by_slot.get(SlotId(0))
-            if inp is None:
-                raise TexProError(ErrorKind.INVALID_BUFFER_COUNT, "Warp needs an input")
-            strength = by_slot.get(SlotId(1))
-            if strength is None:
-                # dangling strength: pass-through alias (the same ImgVal)
-                return [(SlotId(0), inp)]
-            b = args[f"warp_{nid}"]
-            outs = warp_planes(inp.planes, strength.planes[0], b["k"], halo=b["halo"])
-            return [(SlotId(0), ImgVal(list(outs)))]
+            return one(warp_images(inp, planes.get(SlotId(1)), args[f"warp_{nid}"]))
 
-        raise _not_ported(kind)
-
-    def _source(self, fn, rows, cols):
-        """A procedural source `fn(rows, cols)` over the host index vectors:
-        on the device, or shard by shard over the slice of `rows` each shard
-        holds when they shard over the mesh (every pixel is a function of
-        its own global row and column, so the bits are unchanged)."""
-        mesh = self.mesh
-        if mesh is None or not mesh.shardable(len(rows)):
-            return fn(torch.from_numpy(rows).to(self.device), torch.from_numpy(cols).to(self.device))
-        bh = len(rows) // mesh.n
-        results = [
-            fn(torch.from_numpy(rows[j * bh:(j + 1) * bh]).to(d), torch.from_numpy(cols).to(d))
-            for j, d in enumerate(mesh.devices)
-        ]
-        if isinstance(results[0], (tuple, list)):
-            return tuple(ShardedPlane(mesh, bands) for bands in zip(*results))
-        return ShardedPlane(mesh, results)
-
-    @staticmethod
-    def _gray_input(by_slot: dict, what: str) -> torch.Tensor:
-        inp = by_slot.get(SlotId(0))
-        if inp is None or inp.is_rgba:
-            raise TexProError(ErrorKind.INVALID_BUFFER_COUNT, f"{what} needs a Gray input")
-        return inp.planes[0]
+        raise not_ported(kind)
 
 
 class CompiledGraph:

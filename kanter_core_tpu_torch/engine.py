@@ -23,10 +23,19 @@ its argument planes by the JAX package's rule (`_shard_overrides`) and
 evaluates the partition over the mesh; the sharded result planes are
 committed as slot data (and kept by the recipe cache) as they are.
 
-Not yet ported: the per-node route (taken under `auto_update`, with
-`fuse_subgraphs=False`, and for Write sinks) and the tiled, bucketed and
-segmented routes. A per-node dispatch fails its graph with a
-`NODE_PROCESSING` error saying so.
+The per-node route (`_dispatch`, `engine.rs:200-307`) is taken under
+`auto_update` (every dirty node re-renders and becomes Clean on its own) and
+with `fuse_subgraphs=False`: each processable node is admitted on its own,
+served from the recipe cache when it can be, and otherwise evaluated by
+`ops.process_node` on a pooled worker thread, on the processor's device or
+row-sharded over its mesh. Independent nodes run on concurrent threads, all
+on the device's current (default) stream, so a plane made on one thread is
+read on another in launch order. A worker's error (a CUDA error, a kernel
+that does not build) commits as the graph's error; nothing is rerun on
+another device or on a plain version.
+
+Not yet ported: Write sinks (their node kind), and the tiled, bucketed and
+segmented routes.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import queue
 import threading
 from collections import OrderedDict
 
+from . import ops
 from .errors import ErrorKind, TexProError
 from .live_graph import LiveGraph, NodeState
 from .process_pack import ProcessPack
@@ -54,16 +64,17 @@ def _shard_overrides(overrides: dict, mesh) -> dict:
 
 
 class _ThreadMessage:
-    """Result of a per-node dispatch: today always the "not yet ported"
-    error (`_dispatch`)."""
+    """Result of a per-node dispatch: the node's slot datas, or the error
+    its worker raised, with the recipe hash that fills the cache."""
 
-    __slots__ = ("node_id", "result", "live_graph", "event")
+    __slots__ = ("node_id", "result", "live_graph", "event", "recipe")
 
-    def __init__(self, node_id, result, live_graph, event=None):
+    def __init__(self, node_id, result, live_graph, event=None, recipe=None):
         self.node_id = node_id
-        self.result = result  # BaseException
+        self.result = result  # list[SlotData] on success, BaseException on failure
         self.live_graph = live_graph
         self.event = event  # profiling.NodeEvent
+        self.recipe = recipe  # recipe hash for cache fill
 
 
 class _FusedMessage:
@@ -247,7 +258,13 @@ class Engine:
                 self._commit_fused(message)
                 continue
             with live_graph.write() as lg:
-                self._commit_error(lg, message.node_id, message.result, message.event)
+                node_id = message.node_id
+                if isinstance(message.result, BaseException):
+                    self._commit_error(lg, node_id, message.result, message.event)
+                else:
+                    self._commit_success(
+                        lg, node_id, message.result, message.event, recipe=message.recipe
+                    )
 
     def _graph_fatal(self, lg, error) -> None:
         """Surface `error` on the graph's waiters. Capacity and IO errors are
@@ -753,19 +770,63 @@ class Engine:
         self._results.put(message)
         self.wake()
 
-    # --- per-node dispatch (`engine.rs:200-307`): not yet ported ---
+    # --- per-node dispatch (`engine.rs:200-307`) ---
     def _dispatch(self, pack: ProcessPack) -> None:
         live_graph = pack.live_graph
+        node_id = pack.node_id
+
         with live_graph.write() as lg:
+            # Mark Processing before snapshotting edges so no new edge sneaks
+            # in unnoticed (`engine.rs:205-211`).
             try:
-                lg.node_state(pack.node_id)
+                lg.node_state(node_id)
             except TexProError:
                 return
-            lg._set_state_raw(pack.node_id, NodeState.PROCESSING)
-        error = TexProError(
-            ErrorKind.NODE_PROCESSING,
-            "the per-node route (auto_update, fuse_subgraphs=False, Write "
-            "sinks) is not yet ported",
+            lg._set_state_raw(node_id, NodeState.PROCESSING)
+
+            edges = [e for e in lg.edges() if e.input_id == node_id]
+
+            try:
+                node = lg.node_graph.node(node_id)
+            except TexProError:
+                return
+
+            embedded_slot_datas = lg.embedded_slot_datas()
+            input_slot_datas = lg.input_slot_datas()
+
+            input_data = []
+            for edge in edges:
+                try:
+                    input_data.append(lg.slot_data(edge.output_id, edge.output_slot))
+                except TexProError:
+                    # A parent's data is missing: re-dirty both and skip.
+                    # (The reference's plain set_state leaves this node
+                    # ProcessingDirty and stuck; force_state avoids the hang.)
+                    lg.set_state(edge.output_id, NodeState.DIRTY)
+                    lg.force_state(node_id, NodeState.DIRTY)
+                    return
+
+            recipe = None
+            if lg.memoize:
+                remaining, recipes = self._memoize_partition(lg, [node_id])
+                if not remaining:
+                    return  # committed from the recipe cache
+                recipe = recipes.get(node_id)
+
+        event = self.tex_pro.timeline.begin(node_id, node.node_type.kind.value)
+        self._pool.submit(
+            self._worker,
+            node, input_data, embedded_slot_datas, input_slot_datas, edges,
+            live_graph, event, recipe,
         )
-        self._results.put(_ThreadMessage(pack.node_id, error, live_graph))
+
+    def _worker(self, node, input_data, embedded_slot_datas, input_slot_datas, edges,
+                live_graph, event=None, recipe=None) -> None:
+        try:
+            result = ops.process_node(
+                node, input_data, embedded_slot_datas, input_slot_datas, edges, self.tex_pro,
+            )
+        except BaseException as e:  # noqa: BLE001 — the commit decides fatality
+            result = e
+        self._results.put(_ThreadMessage(node.node_id, result, live_graph, event, recipe))
         self.wake()

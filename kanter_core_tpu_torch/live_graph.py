@@ -94,9 +94,7 @@ class LiveGraph:
         # fast path: evaluate the dirty ancestor closure of every request as
         # ONE fused partition instead of per-node dispatches. Observable
         # semantics (states, change feed, commit-time cancel, use_cache
-        # eviction) are identical; auto_update graphs use the per-node path,
-        # which the torch port does not have yet (the engine fails such a
-        # graph with a "not yet ported" error).
+        # eviction) are identical; auto_update graphs use the per-node path.
         self.fuse_subgraphs = True
         # recipe-hash memoization: nodes whose content recipe matches a
         # previously committed result are served from cache without device

@@ -11,6 +11,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import enum
+import math
 import threading
 from typing import Any, Optional
 
@@ -368,9 +369,12 @@ class NodeType:
         height = NodeType._axis(height, "Pattern height")
         cells_x = NodeType._axis(cells_x, "Pattern cells_x")
         cells_y = NodeType._axis(cells_y, "Pattern cells_y")
-        if not (float(mortar) >= 0.0 and float(bevel) >= 0.0):
+        # finite only, unlike the JAX package (which accepts +inf): serde
+        # clamps non-finite values to 0.0, so an accepted +inf would not
+        # round-trip through export_json/from_path
+        if not all(math.isfinite(float(v)) and float(v) >= 0.0 for v in (mortar, bevel)):
             raise TexProError(
-                ErrorKind.GENERIC, "Pattern needs mortar/bevel >= 0"
+                ErrorKind.GENERIC, "Pattern needs finite mortar/bevel >= 0"
             )
         return NodeType(
             NodeTypeKind.PATTERN,

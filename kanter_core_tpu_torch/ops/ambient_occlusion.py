@@ -17,8 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ids import SlotId
 from ..parallel.sharded import map_bands
 from .blur import blur_plane
+from .common import NodePlanes, gray_input
 
 AO_SCALE_FACTORS = (1.0, 2.0, 4.0)
 AO_SCALE_WEIGHT = np.float32(1.0 / 3.0)
@@ -44,3 +46,10 @@ def ao_plane(plane, strength, radius: float):
     """AO of one `[H, W]` gray plane (or `ShardedPlane`)."""
     blurred = [blur_plane(plane, s) for s in ao_sigmas(radius)]
     return map_bands(lambda c, *b: ao_combine(c, b, strength), plane, *blurred)
+
+
+def process(slot_datas, node):
+    io = NodePlanes(slot_datas, node)
+    plane = gray_input(io.named("input"), "AmbientOcclusion")
+    strength, radius = node.node_type.payload
+    return io.outputs([(SlotId(0), [ao_plane(plane, np.float32(strength), radius)])])

@@ -42,7 +42,9 @@ import torch
 
 from ..build import CudaKernel
 from ..errors import ErrorKind, TexProError
+from ..ids import SlotId
 from ..parallel.sharded import ShardedPlane, shard_planes_rows
+from .common import NodePlanes, connected_input
 
 
 @functools.lru_cache(maxsize=256)
@@ -333,3 +335,15 @@ def blur_plane(plane, sigma: float):
     raise TexProError(
         ErrorKind.NODE_PROCESSING, f"no blur for device {plane.device}"
     )
+
+
+def blur_images(planes, sigma: float) -> list:
+    """A Blur node's output planes: every input plane blurred (alpha too)."""
+    return [blur_plane(p, sigma) for p in connected_input(planes, "Blur")]
+
+
+def process(slot_datas, node, sigma: float):
+    """Per-node: one launch of the blur kernel per plane on a CUDA
+    processor, the sharded form's block launches over a mesh."""
+    io = NodePlanes(slot_datas, node)
+    return io.outputs([(SlotId(0), blur_images(io.named("input"), sigma))])

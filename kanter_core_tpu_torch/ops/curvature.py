@@ -8,9 +8,12 @@ plane takes a 1-row ring halo and runs the same math per shard.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..ids import SlotId
 from ..parallel.sharded import ShardedPlane, map_bands
+from .common import NodePlanes, gray_input
 
 
 def curvature_plane(plane, strength):
@@ -39,3 +42,10 @@ def _curvature(plane, up, down, strength):
     right = torch.roll(plane, -1, dims=1) if wide else plane
     lap = ((plane - up) + (plane - down)) + ((plane - left) + (plane - right))
     return torch.clamp((lap * float(strength)) + 0.5, 0.0, 1.0)
+
+
+def process(slot_datas, node):
+    io = NodePlanes(slot_datas, node)
+    plane = gray_input(io.named("input"), "Curvature")
+    strength = np.float32(node.node_type.payload)
+    return io.outputs([(SlotId(0), [curvature_plane(plane, strength)])])

@@ -38,7 +38,8 @@ import torch
 from ..build import CudaKernel
 from ..errors import ErrorKind, TexProError
 from ..parallel.sharded import ShardedPlane, shard_planes_rows
-from .common import sqrt_f32
+from ..ids import SlotId
+from .common import NodePlanes, gray_input, sqrt_f32
 
 _SENTINEL = 0x7FFFFFFF
 _FAR = 2**30
@@ -241,3 +242,11 @@ def distance_plane(mask, max_dist):
     divisor = float(np.maximum(np.float32(max_dist), np.float32(1e-6)))
     fade = 1.0 - dist / torch.full_like(dist, divisor)
     return torch.clamp(fade, 0.0, 1.0)
+
+
+def process(slot_datas, node):
+    """Per-node: the JFA ladder's launches on a CUDA processor; over a mesh
+    the plane is gathered (`distance_plane`)."""
+    io = NodePlanes(slot_datas, node)
+    mask = gray_input(io.named("input"), "Distance")
+    return io.outputs([(SlotId(0), [distance_plane(mask, np.float32(node.node_type.payload))])])

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from ..parallel.sharded import ShardedPlane, map_bands
-from .common import sqrt_f32
+from ..ids import SlotId
+from .common import NodePlanes, gray_input, sqrt_f32
 
 f32 = np.float32
 
@@ -86,3 +87,9 @@ def h2n_planes(h):
     # roll on a length-1 axis is the identity
     up = h if h.shape[0] == 1 else torch.roll(h, 1, dims=0)
     return _h2n_core(h, up, *h.shape)
+
+
+def process(slot_datas, node):
+    io = NodePlanes(slot_datas, node)
+    height = gray_input(io.named("input"), "HeightToNormal")  # `height_to_normal.rs:39-43`
+    return io.outputs([(SlotId(0), list(h2n_planes(height)))])

@@ -13,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ids import SlotId
 from ..parallel.sharded import ShardedPlane, map_bands
+from .common import NodePlanes, connected_input
 
 
 def hsv_bindings(payload) -> np.ndarray:
@@ -83,3 +85,10 @@ def hsv_planes(planes, params) -> list:
     if len(planes) == 4:
         out.append(planes[3])
     return out
+
+
+def process(slot_datas, node):
+    io = NodePlanes(slot_datas, node)
+    planes = hsv_planes(connected_input(io.named("input"), "Hsv"),
+                        hsv_bindings(node.node_type.payload))
+    return io.outputs([(SlotId(0), planes)])  # alpha: the input's PlaneBuffer

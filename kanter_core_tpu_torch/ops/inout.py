@@ -1,34 +1,72 @@
-"""Output op.
+"""Value / Input / Output ops.
 
-Port of the Output part of `kanter_core_tpu/ops/inout.py`
-(`vismut_core/src/node/output.rs`): the per-node form; the fused evaluator
-(`compiler._emit`) handles the same kinds inline. The Value, Input, Image
-and Write ops arrive with the per-node path.
+Port of `kanter_core_tpu/ops/inout.py` (`vismut_core/src/node/{value,
+input_rgba,input_gray,output}.rs`): the per-node forms, and the rules the
+fused evaluator (`compiler.GraphCompiler._emit`) shares with them. The
+Image and Write ops are not yet ported.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from ..errors import ErrorKind, TexProError
 from ..ids import SlotId
 from ..slot_data import SlotData
-from ..slot_image import SlotImage
-from ..transient_buffer import pixel_buffer
+from .common import NodePlanes
 
 
-def process_output(slot_datas, node):
-    """Re-keys its input, or emits a 1×1 black/transparent-black default when
-    unconnected (`output.rs:12-33`)."""
+def value_plane(value, device) -> torch.Tensor:
+    """The 1×1 Gray constant of a Value node (`value.rs:14-26`), on
+    `device`; consumers upscale it through their resize policy."""
+    return torch.full((1, 1), float(np.float32(value)), dtype=torch.float32, device=device)
+
+
+def no_outer_input() -> TexProError:
+    """An InputRgba node evaluated with no input slot data bound."""
+    return TexProError(ErrorKind.NODE_PROCESSING, "InputRgba with no outer input")
+
+
+def output_planes(planes, rgba: bool, place) -> list:
+    """An Output node re-keys its input's planes, or emits a 1×1 black
+    (transparent-black alpha 1) default when unconnected (`output.rs:12-33`)."""
+    if planes is not None:
+        return planes
+    zero = place.full((1, 1), 0.0)
+    return [zero, zero, zero, place.full((1, 1), 1.0)] if rgba else [zero]
+
+
+def process_value(node, value: float, device):
+    io = NodePlanes([], node)
+    return io.outputs([(SlotId(0), [value_plane(value, device)])])
+
+
+def process_input_rgba(node, input_slot_datas):
+    """Passthrough of the first provided input slot data (`input_rgba.rs:7-13`)."""
+    if not input_slot_datas:
+        raise no_outer_input()
+    return [SlotData(node.node_id, SlotId(0), input_slot_datas[0].image)]
+
+
+def process_input_gray(node, input_slot_datas):
+    """Passthrough of the input slot data registered under this node's id
+    (`input_gray.rs:7-16`); empty when missing."""
+    for slot_data in input_slot_datas:
+        if slot_data.node_id == node.node_id:
+            return [SlotData(node.node_id, SlotId(0), slot_data.image)]
+    return []
+
+
+def process_output(slot_datas, node, place):
     from ..node import NodeTypeKind
 
-    if slot_datas:
-        slot_data = slot_datas[0]
-        return [SlotData(node.node_id, SlotId(0), slot_data.image)]
-
-    if node.node_type.kind == NodeTypeKind.OUTPUT_RGBA:
-        image = SlotImage(
-            [pixel_buffer(0.0), pixel_buffer(0.0), pixel_buffer(0.0), pixel_buffer(1.0)]
-        )
-    elif node.node_type.kind == NodeTypeKind.OUTPUT_GRAY:
-        image = SlotImage([pixel_buffer(0.0)])
-    else:
+    kind = node.node_type.kind
+    if kind not in (NodeTypeKind.OUTPUT_GRAY, NodeTypeKind.OUTPUT_RGBA):
         raise AssertionError("output op on a non-output node")
-    return [SlotData(node.node_id, SlotId(0), image)]
+    io = NodePlanes(slot_datas, node)
+    planes = io.by_slot()
+    connected = planes[min(planes)] if planes else None
+    return io.outputs([
+        (SlotId(0), output_planes(connected, kind == NodeTypeKind.OUTPUT_RGBA, place))
+    ])

@@ -8,6 +8,11 @@ on its own — eager torch never contracts a product into its consumer's add
 (never use the fused forms `alpha=`, `lerp` or `addcmul` here). Division is
 tensor by tensor, which is IEEE division on every device.
 
+`mix_images` holds the node's rules on plane lists (a missing side is a 0.0
+image of the other side's size and type, a missing pair a 1×1 Gray 0.0, the
+right side coerced to the left's type, an RGBA result's alpha 1); the fused
+evaluator and the per-node `process` both call it.
+
 POW is not yet ported: `torch.pow` does not reproduce glibc `powf`, which the
 reference's CPU path is, so it raises a `NODE_PROCESSING` error.
 """
@@ -17,7 +22,11 @@ from __future__ import annotations
 import torch
 
 from ..errors import ErrorKind, TexProError
+from ..geometry import Size
+from ..ids import SlotId
 from ..node import MixType
+from ..parallel.sharded import map_bands
+from .common import NodePlanes, as_type
 
 
 def _screen(l, r):
@@ -52,3 +61,35 @@ def _binary(mix_type: MixType):
             ErrorKind.NODE_PROCESSING, f"Mix {mix_type.value} is not yet ported"
         )
     return op
+
+
+def _size(planes) -> Size:
+    h, w = planes[0].shape
+    return Size(w, h)
+
+
+def mix_images(mix_type: MixType, left, right, place) -> list:
+    """The output planes of a Mix of the `left` and `right` plane lists
+    (either may be None); constants are made by the `common.Placement`."""
+    op = _binary(mix_type)
+    if left is not None:
+        rgba = len(left) == 4
+        right = (
+            as_type(right, rgba) if right is not None
+            else place.from_value(_size(left), 0.0, rgba)
+        )
+    elif right is not None:
+        left = place.from_value(_size(right), 0.0, len(right) == 4)
+    else:
+        return [place.full((1, 1), 0.0)]
+    if len(left) == 4:
+        planes = [map_bands(op, left[i], right[i]) for i in range(3)]
+        planes.append(map_bands(torch.ones_like, planes[0]))
+        return planes
+    return [map_bands(op, left[0], right[0])]
+
+
+def process(slot_datas, node, mix_type: MixType, place):
+    io = NodePlanes(slot_datas, node)
+    planes = mix_images(mix_type, io.named("left"), io.named("right"), place)
+    return io.outputs([(SlotId(0), planes)])

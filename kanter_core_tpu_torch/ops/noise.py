@@ -19,6 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ids import SlotId
+from .common import NodePlanes
+
 _M1 = 0x7FEB352D
 _M2 = 0x846CA68B
 _MASK = 0xFFFFFFFF
@@ -113,3 +116,19 @@ def noise_plane(rows, cols, seed, persistence, fx, fy, periods) -> torch.Tensor:
         amp_sum = np.float32(amp_sum + amp)
         amp = np.float32(amp * persistence)
     return acc / torch.full_like(acc, float(amp_sum))
+
+
+def noise_source(b: dict, place):
+    """The node's plane from its `noise_bindings`, made by the
+    `common.Placement`."""
+    return place.source(
+        lambda rows, cols: noise_plane(
+            rows, cols, b["seed"], b["persistence"], b["fx"], b["fy"], b["periods"],
+        ), b["rows"], b["cols"],
+    )
+
+
+def process(node, place):
+    """Per-node: one Gray SlotData at the payload size."""
+    plane = noise_source(noise_bindings(node.node_type.payload), place)
+    return NodePlanes([], node).outputs([(SlotId(0), [plane])])

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ids import SlotId
+from .common import NodePlanes
 from .noise import _hash01
 
 
@@ -81,3 +83,21 @@ def pattern_planes(kind, rows, cols, fx, fy, px, py, mortar, bevel, seed):
     else:  # Brick: the groove field is the mask
         mask = groove
     return mask, cells
+
+
+def pattern_source(kind, b: dict, place) -> tuple:
+    """`(mask, cells)` from the `pattern_bindings` and the pattern `kind`
+    (structure, not an argument), made by the `common.Placement`."""
+    return place.source(
+        lambda rows, cols: pattern_planes(
+            kind, rows, cols, b["fx"], b["fy"], b["px"], b["py"],
+            b["mortar"], b["bevel"], b["seed"],
+        ), b["rows"], b["cols"],
+    )
+
+
+def process(node, place):
+    """Per-node: `mask` + `cells` Gray SlotDatas at the payload size."""
+    payload = node.node_type.payload
+    mask, cells = pattern_source(payload[2], pattern_bindings(payload), place)
+    return NodePlanes([], node).outputs([(SlotId(0), [mask]), (SlotId(1), [cells])])

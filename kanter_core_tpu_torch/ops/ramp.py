@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import sqrt_f32
+from ..ids import SlotId
+from .common import NodePlanes, sqrt_f32
 from .transform import _QUARTER
 
 
@@ -52,3 +53,19 @@ def ramp_plane(kind, rows, cols, iw, ih, k) -> torch.Tensor:
         m = torch.maximum(du.abs().expand(dv.shape[0], du.shape[1]), dv.abs())
         t = (m + m) * scale
     return torch.clamp(t, 0.0, 1.0)
+
+
+def ramp_source(kind, b: dict, place):
+    """The plane from the `ramp_bindings` and the ramp `kind` (structure),
+    made by the `common.Placement`."""
+    return place.source(
+        lambda rows, cols: ramp_plane(kind, rows, cols, b["iw"], b["ih"], b["k"]),
+        b["rows"], b["cols"],
+    )
+
+
+def process(node, place):
+    """Per-node: one Gray SlotData at the payload size."""
+    payload = node.node_type.payload
+    plane = ramp_source(payload[2], ramp_bindings(payload), place)
+    return NodePlanes([], node).outputs([(SlotId(0), [plane])])

@@ -300,3 +300,29 @@ def calculate_size(slot_datas, edges, policy: ResizePolicy) -> Size:
     if kind == K.SPECIFIC_SIZE:
         return policy.payload
     raise TexProError(ErrorKind.GENERIC, f"unknown policy {policy!r}")
+
+
+def resize_buffers(slot_datas, edges, policy: ResizePolicy, filt: ResizeFilter, mesh=None):
+    """Resize every input whose size differs from the policy's size
+    (`shared.rs:141-216`), through `resample_any` (row-sharded over `mesh`
+    where the target rows shard). Planes that already match are shared,
+    not copied."""
+    from ..slot_data import SlotData
+    from ..slot_image import SlotImage
+    from ..transient_buffer import plane_from_device
+
+    if not slot_datas:
+        return list(slot_datas)
+    size = calculate_size(slot_datas, edges, policy)
+
+    output = []
+    for slot_data in slot_datas:
+        if slot_data.size() != size:
+            planes = [
+                plane_from_device(resample_any(buf.data(), size, filt, mesh))
+                for buf in slot_data.image.bufs()
+            ]
+            output.append(SlotData(slot_data.node_id, slot_data.slot_id, SlotImage(planes)))
+        else:
+            output.append(slot_data)
+    return output

@@ -5,76 +5,66 @@ These never touch pixel data: Separate re-exposes the four RGBA planes as four
 Gray outputs by sharing the plane buffers (`separate_rgba.rs:38-68`); Combine
 assembles four optional Gray inputs into one RGBA image where missing color
 channels share a single lazily-created 0.0 plane and missing alpha gets a 1.0
-plane (`combine_rgba.rs:30-73`). These are the per-node forms; the fused
-evaluator (`compiler._emit`) selects the same planes inline.
+plane (`combine_rgba.rs:30-73`). `separate_planes` and `combine_planes` are
+the rules on plane lists; the fused evaluator (`compiler._emit`) and the
+per-node forms both call them.
 """
 
 from __future__ import annotations
 
-import numpy as np
-
 from ..errors import ErrorKind, TexProError
-from ..geometry import Size
 from ..ids import SlotId
-from ..slot_data import SlotData
-from ..slot_image import SlotImage
-from ..transient_buffer import pixel_buffer, plane_from_host
-from .common import slot_data_with_name
+from .common import NodePlanes
 
 
-def process_separate(slot_datas, node):
-    if slot_datas:
-        slot_data = slot_datas[0]
-        if slot_data.image.is_rgba():
-            return [
-                SlotData(node.node_id, SlotId(i), SlotImage([slot_data.image.planes[i]]))
-                for i in range(4)
-            ]
-    # unconnected default: four independent 1×1 zero planes (`separate_rgba.rs:13-36`)
-    return [SlotData(node.node_id, SlotId(i), SlotImage([pixel_buffer(0.0)])) for i in range(4)]
+def separate_planes(planes, place) -> list:
+    """The four Gray outputs' planes: the RGBA input's planes, or four
+    independent 1×1 zero planes for a Gray or missing input
+    (`separate_rgba.rs:13-36`)."""
+    if planes is not None and len(planes) == 4:
+        return [[p] for p in planes]
+    return [[place.full((1, 1), 0.0)] for _ in range(4)]
 
 
-def process_combine(slot_datas, node):
-    size = slot_datas[0].size() if slot_datas else Size(1, 1)
+def combine_planes(by_slot: dict, place) -> list:
+    """The RGBA planes of four optional Gray inputs by input slot (red,
+    green, blue, alpha); an RGBA input is an `INVALID_SLOT_TYPE` error
+    (`combine_rgba.rs:22-25`)."""
+    if by_slot:
+        h, w = by_slot[min(by_slot)][0].shape
+    else:
+        h, w = 1, 1
+    shared_zero = None
 
-    named = [
-        slot_data_with_name(slot_datas, node, name)
-        for name in ("red", "green", "blue", "alpha")
-    ]
-
-    shared_zero = None  # missing color channels share one zero plane
-
-    def color_plane(slot_data):
-        nonlocal shared_zero
-        if slot_data is not None:
-            if slot_data.image.is_rgba():
-                raise TexProError(
-                    ErrorKind.INVALID_SLOT_TYPE,
-                    "RGBA image connected to a CombineRgba input slot",
-                )
-            return slot_data.image.planes[0]
-        if shared_zero is None:
-            shared_zero = plane_from_host(
-                np.zeros((size.height, size.width), dtype=np.float32)
+    def plane_of(slot):
+        planes = by_slot.get(SlotId(slot))
+        if planes is not None and len(planes) == 4:
+            raise TexProError(
+                ErrorKind.INVALID_SLOT_TYPE,
+                "RGBA image connected to a CombineRgba input slot",
             )
-        return shared_zero
+        return None if planes is None else planes[0]
 
-    def alpha_plane(slot_data):
-        if slot_data is not None:
-            if slot_data.image.is_rgba():
-                raise TexProError(
-                    ErrorKind.INVALID_SLOT_TYPE,
-                    "RGBA image connected to a CombineRgba input slot",
-                )
-            return slot_data.image.planes[0]
-        return plane_from_host(np.ones((size.height, size.width), dtype=np.float32))
+    colors = []
+    for slot in range(3):
+        plane = plane_of(slot)
+        if plane is None:
+            if shared_zero is None:
+                shared_zero = place.full((h, w), 0.0)
+            plane = shared_zero
+        colors.append(plane)
+    alpha = plane_of(3)
+    if alpha is None:
+        alpha = place.full((h, w), 1.0)
+    return [*colors, alpha]
 
-    image = SlotImage(
-        [
-            color_plane(named[0]),
-            color_plane(named[1]),
-            color_plane(named[2]),
-            alpha_plane(named[3]),
-        ]
-    )
-    return [SlotData(node.node_id, SlotId(0), image)]
+
+def process_separate(slot_datas, node, place):
+    io = NodePlanes(slot_datas, node)
+    outs = separate_planes(io.named("input"), place)
+    return io.outputs([(SlotId(i), planes) for i, planes in enumerate(outs)])
+
+
+def process_combine(slot_datas, node, place):
+    io = NodePlanes(slot_datas, node)
+    return io.outputs([(SlotId(0), combine_planes(io.by_slot(), place))])

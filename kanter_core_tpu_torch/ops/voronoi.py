@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import sqrt_f32
+from ..ids import SlotId
+from .common import NodePlanes, sqrt_f32
 from .noise import _hash01
 
 _SALT_JY = 0x68E31DA4
@@ -79,3 +80,20 @@ def voronoi_planes(rows, cols, fx, fy, px, py, jitter, seed):
     distance = torch.clamp(f1, 0.0, 1.0)
     borders = torch.clamp(f2 - f1, 0.0, 1.0)
     return distance, borders, best_id
+
+
+def voronoi_source(b: dict, place) -> tuple:
+    """`(distance, borders, cells)` from the `voronoi_bindings`, made by the
+    `common.Placement`."""
+    return place.source(
+        lambda rows, cols: voronoi_planes(
+            rows, cols, b["fx"], b["fy"], b["px"], b["py"], b["jitter"], b["seed"],
+        ), b["rows"], b["cols"],
+    )
+
+
+def process(node, place):
+    """Per-node: `distance` + `borders` + `cells` Gray SlotDatas at the
+    payload size."""
+    planes = voronoi_source(voronoi_bindings(node.node_type.payload), place)
+    return NodePlanes([], node).outputs([(SlotId(i), [p]) for i, p in enumerate(planes)])

@@ -47,6 +47,8 @@ import torch
 from ..build import CudaKernel
 from ..errors import ErrorKind, TexProError
 from ..parallel.sharded import ShardedPlane, shard_planes_rows
+from ..ids import SlotId
+from .common import NodePlanes, connected_input
 from .transform import _QUARTER, bilinear_wrap_gather
 
 
@@ -435,3 +437,22 @@ def warp_planes(planes, strength, k, halo=None) -> tuple:
     if strength.device.type == "cuda":
         return warp_planes_cuda([p.contiguous() for p in planes], strength.contiguous(), k)
     raise TexProError(ErrorKind.NODE_PROCESSING, f"no warp for device {strength.device}")
+
+
+def warp_images(planes, strength, b: dict) -> list:
+    """A Warp node's output planes from its input's and its strength's
+    planes and its `warp_bindings`; a dangling strength passes the input's
+    planes through (an alias, the re-key Output does)."""
+    planes = connected_input(planes, "Warp")
+    if strength is None:
+        return planes
+    return list(warp_planes(planes, strength[0], b["k"], halo=b["halo"]))
+
+
+def process(slot_datas, node):
+    """Per-node: the warp kernel's launches on a CUDA processor, the block
+    kernel's over a mesh."""
+    io = NodePlanes(slot_datas, node)
+    planes = warp_images(io.named("input"), io.named("strength"),
+                         warp_bindings(node.node_type.payload))
+    return io.outputs([(SlotId(0), planes)])

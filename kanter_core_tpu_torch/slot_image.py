@@ -24,7 +24,7 @@ import torch
 
 from .errors import ErrorKind, TexProError
 from .geometry import Size
-from .ops.common import f32_to_u8
+from .ops.common import f32_to_u8, rgb_mean
 from .parallel.sharded import ShardedPlane, map_bands
 from .transient_buffer import PlaneBuffer, Tier, plane_from_device, plane_from_host
 
@@ -44,14 +44,6 @@ def gray_to_u8(g: torch.Tensor) -> torch.Tensor:
 
 def rgba_to_u8(r, g, b, a) -> torch.Tensor:
     return _pack_u32(f32_to_u8(r), f32_to_u8(g), f32_to_u8(b), f32_to_u8(a))
-
-
-def rgb_mean(r, g, b) -> torch.Tensor:
-    """gray = ((r + g) + b) / 3 — the association of `slot_image.rs:247-250`.
-    The divisor is a full tensor: a Python-scalar divisor may become a
-    multiply by the reciprocal on CUDA, which rounds differently."""
-    s = (r + g) + b
-    return s / torch.full_like(s, 3.0)
 
 
 def _as_plane(obj) -> PlaneBuffer:

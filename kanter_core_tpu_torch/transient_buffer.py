@@ -319,11 +319,6 @@ def plane_from_device(tensor) -> PlaneBuffer:
     return PlaneBuffer(device=tensor)
 
 
-def pixel_buffer(value: float) -> PlaneBuffer:
-    """A 1×1 gray plane (`vismut_core/src/node/mod.rs:239-243`)."""
-    return PlaneBuffer(host=np.full((1, 1), value, dtype=np.float32))
-
-
 class PlaneBufferQueue:
     """LRU spill manager (analog of `TransientBufferQueue`,
     `transient_buffer.rs:250-434`).

@@ -427,3 +427,73 @@ def test_cuda_warp_block_refuses_mixed_and_cpu_tensors(card):
     with pytest.raises(port.TexProError):
         warp.warp_block_cuda(planes, strength, k, [tops[0], tops[1].cpu(), *tops[2:]], bots,
                              row_origin, h)
+
+
+def _kernel_node_graph(kind):
+    """Inputs → one kernel node (Blur of RGBA, Distance of a mask, Warp of
+    RGBA by a gray strength) → Output."""
+    g = port.NodeGraph()
+    rgba = g.add_node(port.Node(port.NodeType.InputRgba("image")))
+    gray = g.add_node(port.Node(port.NodeType.InputGray("gray")))
+    node_type = {
+        "blur": lambda: port.NodeType.Blur(6.0),
+        "distance": lambda: port.NodeType.Distance(24.0),
+        "warp": lambda: port.NodeType.Warp(37.0, 9.0),
+    }[kind]()
+    node = g.add_node(port.Node(node_type))
+    g.connect(gray if kind == "distance" else rgba, node, port.SlotId(0), port.SlotId(0))
+    if kind == "warp":
+        g.connect(gray, node, port.SlotId(0), port.SlotId(1))
+    out = g.add_node(port.Node(port.NodeType.OutputGray("out") if kind == "distance"
+                               else port.NodeType.OutputRgba("out")))
+    g.connect(node, out, port.SlotId(0), port.SlotId(0))
+    return g, rgba, gray, out
+
+
+def _read_kernel_node(device, kind, route, n=256):
+    from kanter_core_tpu_torch.ops import distance, warp
+
+    graph, rgba, gray, out = _kernel_node_graph(kind)
+    rng = np.random.default_rng(5)
+    planes = planes_from_numpy([rng.random((n, n), dtype=np.float32) for _ in range(4)], device)
+    mask = planes_from_numpy([(rng.random((n, n)) < 0.002).astype(np.float32)], device)[0]
+    tp = port.TextureProcessor(10_000_000, device=device)
+    try:
+        lg = tp.new_live_graph()
+        with lg.write() as g:
+            g.set_node_graph(graph)
+            g.auto_update = route == "auto_update"
+            g.fuse_subgraphs = route == "fused"
+            g.add_input_slot_data(port.SlotData(rgba, port.SlotId(0), port.SlotImage.Rgba(planes)))
+            g.add_input_slot_data(port.SlotData(gray, port.SlotId(0), port.SlotImage.Gray(mask)))
+        kernels = (blur.BLUR_KERNEL, distance.JFA_KERNEL, distance.JFA_NEAR_KERNEL,
+                   warp.WARP_KERNEL)
+        before = [k.launches for k in kernels]
+        u8 = port.TextureProcessor.buffer_rgba(lg, out, port.SlotId(0))
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        image = lg.slot_data(out, port.SlotId(0)).image
+        return u8, [p.host_data().copy() for p in image.planes], launched
+    finally:
+        tp.shutdown_now()
+
+
+@pytest.mark.parametrize("route", ["auto_update", "no_fuse"])
+@pytest.mark.parametrize("kind", ["blur", "distance", "warp"])
+def test_per_node_kernel_node_on_card_matches_fused(card, kind, route):
+    """One Blur, Distance or Warp node on the per-node route: the same u8
+    and f32 planes as the fused route on the card and as the CPU, and the
+    kernel launched from the worker thread as often as the fused route
+    launches it (one blur per plane, one JFA ladder, one warp)."""
+    from kanter_core_tpu_torch.ops import distance
+
+    got_u8, got, launched = _read_kernel_node(card, kind, route)
+    want_u8, want, fused_launched = _read_kernel_node(card, kind, "fused")
+    cpu_u8, cpu, _ = _read_kernel_node("cpu", kind, route)
+    for a, b in ((got, want), (got, cpu)):
+        assert all(np.array_equal(x.view(np.int32), y.view(np.int32)) for x, y in zip(a, b))
+    assert np.array_equal(got_u8, want_u8) and np.array_equal(got_u8, cpu_u8)
+    plan = distance.jfa_launch_plan(256, 256)
+    ladder = [sum(1 for x in plan if x.entry == e) for e in ("step", "near")]
+    want_launches = {"blur": [4, 0, 0, 0], "distance": [0, *ladder, 0],
+                     "warp": [0, 0, 0, 1]}[kind]
+    assert launched == fused_launched == want_launches

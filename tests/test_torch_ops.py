@@ -24,6 +24,7 @@ from kanter_core_tpu_torch.ops import inout as port_inout
 from kanter_core_tpu_torch.ops import mix as port_mix
 from kanter_core_tpu_torch.ops import resize as port_resize
 from kanter_core_tpu_torch.ops import separate_combine as port_sc
+from kanter_core_tpu_torch.ops.common import Placement
 from kanter_core_tpu_torch.ops.height_to_normal import h2n_planes
 
 torch.set_num_threads(1)
@@ -124,6 +125,12 @@ def _slot_data(pkg, node_id, slot, planes):
     return pkg.SlotData(pkg.NodeId(node_id), pkg.SlotId(slot), image)
 
 
+def _place(pkg) -> tuple:
+    """The port's per-node ops take the processor's placement; the JAX
+    package's none."""
+    return (Placement("cpu"),) if pkg is port else ()
+
+
 def _host_planes(slot_datas):
     return [[np.asarray(p.host_data()) for p in sd.image.planes] for sd in slot_datas]
 
@@ -133,7 +140,7 @@ def test_separate_matches_reference():
     outs = {}
     for pkg, sc in ((ref, ref_sc), (port, port_sc)):
         node = pkg.Node(pkg.NodeType.SeparateRgba(), pkg.NodeId(9))
-        outs[pkg] = sc.process_separate([_slot_data(pkg, 1, 0, planes)], node)
+        outs[pkg] = sc.process_separate([_slot_data(pkg, 1, 0, planes)], node, *_place(pkg))
         # aliasing: each output plane IS one of the input's planes
         assert len({id(sd.image.planes[0]) for sd in outs[pkg]}) == 4
     assert [int(sd.slot_id) for sd in outs[port]] == [int(sd.slot_id) for sd in outs[ref]]
@@ -149,7 +156,7 @@ def test_combine_matches_reference(connected):
     for pkg, sc in ((ref, ref_sc), (port, port_sc)):
         node = pkg.Node(pkg.NodeType.CombineRgba(), pkg.NodeId(9))
         inputs = [_slot_data(pkg, 1, slot, [p]) for slot, p in planes.items()]
-        outs[pkg] = sc.process_combine(inputs, node)
+        outs[pkg] = sc.process_combine(inputs, node, *_place(pkg))
     for g, r in zip(_host_planes(outs[port])[0], _host_planes(outs[ref])[0]):
         _assert_bits_equal(g, r)
 
@@ -164,7 +171,7 @@ def test_output_matches_reference(kind, connected):
     for pkg, inout in ((ref, ref_inout), (port, port_inout)):
         node = pkg.Node(getattr(pkg.NodeType, kind)("out"), pkg.NodeId(4))
         inputs = [_slot_data(pkg, 1, 0, planes)] if connected else []
-        outs[pkg] = inout.process_output(inputs, node)
+        outs[pkg] = inout.process_output(inputs, node, *_place(pkg))
         assert [(int(sd.node_id), int(sd.slot_id)) for sd in outs[pkg]] == [(4, 0)]
     for g, r in zip(_host_planes(outs[port])[0], _host_planes(outs[ref])[0]):
         _assert_bits_equal(g, r)

@@ -177,26 +177,6 @@ def test_slice_under_eviction_matches_resident_run():
         evicting.close()
 
 
-def test_per_node_route_fails_graph_as_not_yet_ported():
-    """`auto_update` graphs take the per-node route, which is not ported:
-    the read fails with a NODE_PROCESSING error instead of hanging."""
-    graph = node_graph_from_reference(json.dumps(ref_graphs.invert_graph().to_json()))
-    tp = port.TextureProcessor(10_000_000, device="cpu")
-    try:
-        lg = tp.new_live_graph()
-        with lg.write() as g:
-            g.set_node_graph(graph)
-            g.auto_update = True
-            (inp,) = g.node_graph.input_ids()
-            plane = torch.zeros(4, 4)
-            g.add_input_slot_data(port.SlotData(inp, port.SlotId(0), port.SlotImage.Gray(plane)))
-        with pytest.raises(port.TexProError) as err:
-            port.TextureProcessor.buffer_rgba(lg, graph.output_ids()[0], port.SlotId(0))
-        assert "not yet ported" in str(err.value)
-    finally:
-        tp.shutdown_now()
-
-
 def test_concurrent_reads_and_edits_settle_to_a_fresh_render():
     """Readers on four threads and Value edits on the main thread share one
     live graph; once they stop, every output equals a fresh render of the
