@@ -8,8 +8,10 @@ Phases, each of which raises (exit code != 0) on failure:
 1. the card: name and power limit from nvidia-smi, torch and CUDA versions;
    no CUDA device → exit before printing any result;
 2. build: compiles `csrc/blur.cu`, `csrc/jfa.cu` and `csrc/warp.cu` with
-   nvcc from the checkout's sources, one compiler per source, all started
-   together, and prints the build times and ptxas reports;
+   nvcc from the checkout's sources, one compiler per source, and the host
+   loops of `csrc/host.c` (glibc `powf` over arrays, the PNG unfilter) with
+   the host's C compiler, all started together, and prints the build times
+   and ptxas reports;
 3. kernels against their plain torch versions on the card; every output
    must be bit-identical (0 mismatches on the int32 view). CUDA-event
    timings (median of 20 runs after warm-up) at 4096² of the kernel, the
@@ -91,18 +93,43 @@ Phases, each of which raises (exit code != 0) on failure:
    route's same read of phases 4 and 5; counters set to 0 just before each
    sequence, and the blur, JFA (step and near, from `jfa_launch_plan`)
    and warp launches after each read group exactly those derived from the
-   graph (`Session.expect_pernode`: the nodes each read group evaluates,
+   graph (`Session.expect_launches`: the nodes each read group evaluates,
    the plane counts of their committed inputs); then the per-node flagship
    over four shards against the per-node single-device run (block
    launches 4× the dense ones, gathers as in phase 8), and card vs CPU
    at 1024² for the per-node flagship and for the per-node PBR sequence on
    the default `use_cache=False`. The per-node read times are printed
-   beside the fused route's.
+   beside the fused route's;
+11. the templates (`models.emboss_graph`, `wood_`, `stone_`, `metal_`,
+   `brick_` and `cobblestone_material_graph`) at 4096² (emboss on a 4096²
+   height from `numpy.random.default_rng(0)`), every node's data kept:
+   every output read, then phase 11's edits (a Levels gamma: wood 1.6→2.0,
+   stone 2.4→1.8, metal 3.2→2.5; a GradientMap stop colour: brick,
+   cobblestone; a Transform rotation: wood, metal; a Blur sigma: emboss
+   1.0→2.0), every output re-read after each; counters set to 0 just before
+   each sequence, the blur, JFA and warp launches after each read group
+   those derived from the graph (`Session.expect_launches`). The same six
+   sequences with `fuse_subgraphs=False`, bit-identical to the fused ones;
+   wood and brick over four shards, bit-identical to one device, block
+   launches 4× the dense ones and gathers exact (`transform` one per plane
+   a Transform takes, `distance` one per Distance evaluation, `export` one
+   per read). A Graph node wrapping emboss, fused and per node,
+   bit-identical to the flat emboss. A Write node saving the 4096² wood
+   albedo and an Image node decoding it: its planes are `u8 / 255` of the
+   export (encode and decode ms printed). `ds_pow` on the card equal to
+   `ds_pow` on the CPU over the u8 grid and a 4096² plane, the sRGB export
+   on the card equal to the CPU's on the u8 grid and a 4096² plane, the
+   Levels node at 4096² timed at gamma 1.6 and 1. Card vs CPU at 1024² for
+   each template after its last edit: every plane with no pow upstream
+   exact, each Levels of gamma ≠ 1 different only where glibc `powf` and
+   `ds_pow` differ for the CPU's `t`, the planes downstream of it counted.
 
 The third-to-last line ranks the kernels by launches × (ms − bound) over
-the seven sequences, the second-to-last is a JSON object describing the
-kernels (`launches` summed over the fused, mesh and per-node sequences),
-the last line is `{"ok": true, "device": {...}}`.
+the 4096² sequences, the second-to-last is a JSON object describing the
+kernels (`launches` summed over the fused, mesh, per-node and template
+sequences), the last line is `{"ok": true, "device": {...}}`. Run alone, in
+a directory holding no `kanter_core_tpu_torch` package, it exits 1 without
+a result.
 """
 
 from __future__ import annotations
@@ -204,22 +231,29 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
 
 
 def build_phase(kernels) -> None:
-    """Build every kernel library at once, one nvcc per source."""
+    """Build every kernel library at once, one nvcc per source, and the host
+    loops (`csrc/host.c`) beside them."""
+    from kanter_core_tpu_torch.build import host_library
+
     times, errors = {}, {}
 
-    def build(kernel):
+    def build(name, fn):
         t0 = time.perf_counter()
         try:
-            kernel.entry()
+            fn()
         except Exception as e:  # noqa: BLE001 — re-raised below, after every build ends
-            errors[kernel.name] = e
-        times[kernel.name] = time.perf_counter() - t0
+            errors[name] = e
+        times[name] = time.perf_counter() - t0
 
-    threads = [threading.Thread(target=build, args=(k,)) for k in kernels]
+    jobs = [(k.name, k.entry) for k in kernels] + [("host", host_library)]
+    threads = [threading.Thread(target=build, args=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
+    if "host" in errors:
+        raise RuntimeError("building csrc/host.c failed") from errors["host"]
+    log(f"build: csrc/host.c in {times['host']:.2f} s")
     for kernel in kernels:
         if kernel.name in errors:
             raise RuntimeError(f"building csrc/{kernel.name}.cu failed") from errors[kernel.name]
@@ -242,16 +276,19 @@ def blur_library(x, taps):
 
 
 def main_path_sigmas() -> list:
-    """Every sigma the two graphs of the main path hand to the blur kernel:
-    the PBR graph's Blur nodes and its sigma edit, the flagship's Blur node
-    and the three sigmas of its AmbientOcclusion node."""
+    """Every sigma the graphs of the main path hand to the blur kernel: the
+    PBR graph's Blur nodes and its sigma edit, the flagship's Blur node and
+    the three sigmas of its AmbientOcclusion node, the six templates' Blur
+    and AmbientOcclusion nodes and emboss's sigma edit."""
     from kanter_core_tpu_torch import NodeTypeKind
     from kanter_core_tpu_torch.graphs import flagship_graph
     from kanter_core_tpu_torch.models import pbr_material_graph
     from kanter_core_tpu_torch.ops.ambient_occlusion import ao_sigmas
 
-    sigmas = {4.0}  # the PBR sequence's sigma edit
-    for graph in (pbr_material_graph(), flagship_graph(CANVAS)[0]):
+    sigmas = {4.0, EMBOSS_SIGMA_EDIT}  # the PBR and emboss sequences' sigma edits
+    graphs = [pbr_material_graph(), flagship_graph(CANVAS)[0]]
+    graphs += [template_graph(name, CANVAS) for name in TEMPLATES]
+    for graph in graphs:
         for node in graph.nodes:
             if node.node_type.kind == NodeTypeKind.BLUR:
                 sigmas.add(round(float(node.node_type.payload), 6))
@@ -601,29 +638,33 @@ class Session:
         if self.tp.device.type == "cuda":
             self.torch.cuda.synchronize()
 
-    def expect_pernode(self, groups) -> list:
-        """The kernel launches the per-node route must make, cumulative per
-        read group, derived from the graph and the committed planes (the
-        session keeps every node's data): `groups` holds, per read group,
-        the ids of the nodes the route evaluates. A Blur node launches the
-        blur kernel once per plane of its input, an AmbientOcclusion node
-        three times, a Distance node one ladder of `jfa_launch_plan` for its
-        input's size, a Warp node with a strength input once per group of
-        up to four planes of its image."""
+    def expect_launches(self, groups) -> list:
+        """The kernel launches the route must make, cumulative per read
+        group, derived from the graph and the committed planes (the session
+        keeps every node's data): `groups` holds, per read group, the ids of
+        the nodes the route evaluates. A Blur node launches the blur kernel
+        once per plane of its input, an AmbientOcclusion node three times, a
+        Distance node one ladder of `jfa_launch_plan` for its input's size,
+        a Warp node with a strength input once per group of up to four
+        planes of its image; `transform` counts the planes Transform nodes
+        take (under a mesh, one `transform` gather each)."""
         from kanter_core_tpu_torch import NodeTypeKind as K
 
         distance = kernels()[1]
         g = self.lg.node_graph
-        total = dict.fromkeys(("blur", "jfa", "jfa_near", "warp"), 0)
+        total = dict.fromkeys(("blur", "jfa", "jfa_near", "warp", "transform"), 0)
         out = []
         for group in groups:
             for node_id in sorted(group):
                 kind = g.node(node_id).node_type.kind
                 edges = {int(e.input_slot): e for e in g.edges if e.input_id == node_id}
-                if kind not in (K.BLUR, K.AMBIENT_OCCLUSION, K.DISTANCE, K.WARP) or 0 not in edges:
+                if (kind not in (K.BLUR, K.AMBIENT_OCCLUSION, K.DISTANCE, K.WARP, K.TRANSFORM)
+                        or 0 not in edges):
                     continue
                 image = self.lg.slot_data(edges[0].output_id, edges[0].output_slot).image
-                if kind == K.BLUR:
+                if kind == K.TRANSFORM:
+                    total["transform"] += len(image.planes)
+                elif kind == K.BLUR:
                     total["blur"] += len(image.planes)
                 elif kind == K.AMBIENT_OCCLUSION:
                     total["blur"] += 3
@@ -639,6 +680,15 @@ class Session:
     def node(self, kind, pred=lambda p: True):
         return next(x.node_id for x in self.lg.node_graph.nodes
                     if x.node_type.kind == kind and pred(x.node_type.payload))
+
+    def capture(self) -> dict:
+        """`{(node id, slot id): [f32 planes]}` of every node's committed
+        output (the session keeps every node's data)."""
+        out = {}
+        with self.lg.read() as g:
+            for sd in g.slot_datas:
+                out[(sd.node_id, sd.slot_id)] = [p.host_data().copy() for p in sd.image.planes]
+        return out
 
     def finish(self):
         if self.lg.fatal_error is not None:
@@ -680,28 +730,30 @@ def closure(graph, start, up: bool) -> set:
     return seen
 
 
-def pernode_groups(s, edits) -> list:
-    """Per read group, the nodes the session's per-node route evaluates: the
-    render evaluates every node (`auto_update`) or the outputs read and
-    their ancestors (`no_fuse`); an edit evaluates the edited node and its
-    descendants, under `no_fuse` only those the reads reach. `edits` holds
-    the edited node of each later group."""
+def evaluated_groups(s, edits) -> list:
+    """Per read group, the nodes the session's route evaluates: the render
+    evaluates every node (`auto_update`) or the outputs read and their
+    ancestors (the fused route and `no_fuse`); an edit evaluates the edited
+    node and its descendants, outside `auto_update` only those the reads
+    reach. `edits` holds the edited node of each later group."""
     graph = s.lg.node_graph
-    every = {n.node_id for n in graph.nodes}
-    reached = every
-    if s.route == "no_fuse":
+    reached = {n.node_id for n in graph.nodes}
+    if s.route != "auto_update":
         reached = closure(graph, [s.outputs[name] for _, name, _ in s.times], up=True)
     return [reached] + [closure(graph, [x], up=False) & reached for x in edits]
 
 
-def check_pernode(label, s) -> None:
-    """The per-node session's launch counts, per read group, against those
-    derived from its graph (`Session.expect_pernode`); the block kernels 0."""
-    want = s.pernode_expected
-    got = [{k: c[k] for k in ("blur", "jfa", "jfa_near", "warp")} for c in s.counts]
-    log(f"per-node {label} launches after each read group: {got}, derived from the graph: {want}")
+KERNEL_KEYS = ("blur", "jfa", "jfa_near", "warp")
+
+
+def check_launches(label, s) -> None:
+    """The session's launch counts, per read group, against those derived
+    from its graph (`Session.expect_launches`); the block kernels 0."""
+    want = [{k: e[k] for k in KERNEL_KEYS} for e in s.expected]
+    got = [{k: c[k] for k in KERNEL_KEYS} for c in s.counts]
+    log(f"{s.route} {label} launches after each read group: {got}, derived from the graph: {want}")
     if got != want or any(c["blur_block"] or c["warp_block"] for c in s.counts):
-        raise AssertionError(f"per-node {label}: launches {s.counts}, want {want}")
+        raise AssertionError(f"{s.route} {label}: launches {s.counts}, want {want}")
 
 
 def log_read_times(label, fused, pernode) -> None:
@@ -736,7 +788,7 @@ def drive_pbr(device: str, n: int, seed: int = 0, timed: bool = False, mesh=None
         s.read("sigma-edit", ["ao", "roughness"])
         s.finish()
         if route != "fused" and keep:
-            s.pernode_expected = s.expect_pernode(pernode_groups(s, [ao_strength, ao_blur]))
+            s.expected = s.expect_launches(evaluated_groups(s, [ao_strength, ao_blur]))
     finally:
         s.close()
     return s
@@ -773,7 +825,7 @@ def drive_flagship(device: str, n: int, timed: bool = False, mesh=None, route: s
         s.read("warp-edit", ["out"])
         s.finish()
         if route != "fused":
-            s.pernode_expected = s.expect_pernode(pernode_groups(s, [v, dist, warp]))
+            s.expected = s.expect_launches(evaluated_groups(s, [v, dist, warp]))
     finally:
         s.close()
     return s
@@ -1005,32 +1057,348 @@ def warp_block_phase(kp_warp, mesh) -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
-def check_mesh_run(label, single, sharded) -> None:
+def check_mesh_run(label, single, sharded, transforms=None) -> None:
     """The mesh run's launch and gather counts against the single-device
     run of the same sequence: per read group, the block kernels 4× (one
     launch per shard) the dense kernels' counts, the dense blur and warp
     kernels 0, the JFA ladder the same; gathers one per Distance
-    evaluation, per export and per plane read back, else 0."""
+    evaluation, per export, per plane read back and per plane a Transform
+    takes (`transforms`, cumulative per read group), else 0."""
     n = sharded.mesh.n
+    transforms = transforms or [0] * len(sharded.counts)
     log(f"mesh {label} launches after each read group: {sharded.counts}")
     log(f"mesh {label} mesh counters after each read group: {sharded.mesh_counts}")
     if len(single.counts) != len(sharded.counts):
         raise AssertionError(f"mesh {label}: {len(sharded.counts)} read groups, want "
                              f"{len(single.counts)}")
-    for one, many, mc in zip(single.counts, sharded.counts, sharded.mesh_counts):
+    for one, many, mc, tf in zip(single.counts, sharded.counts, sharded.mesh_counts, transforms):
         want = {"blur": 0, "warp": 0, "jfa": one["jfa"], "jfa_near": one["jfa_near"],
                 "blur_block": n * one["blur"], "warp_block": n * one["warp"]}
         if many != want:
             raise AssertionError(f"mesh {label}: launches {many}, want {want}")
         # a ladder ends in exactly one near launch
-        want_g = {"distance": many["jfa_near"], "blur_gate": 0, "warp_gate": 0,
-                  "resize": 0, "export": mc["reads"], "host": mc["planes_read"]}
+        want_g = {"distance": many["jfa_near"], "transform": tf, "blur_gate": 0,
+                  "warp_gate": 0, "resize": 0, "export": mc["reads"],
+                  "host": mc["planes_read"]}
         if mc["gathers"] != want_g:
             raise AssertionError(f"mesh {label}: gathers {mc['gathers']}, want {want_g}")
 
 
+TEMPLATES = ("emboss", "wood", "stone", "metal", "brick", "cobblestone")
+EMBOSS_SIGMA_EDIT = 2.0
+
+
+def template_graph(name: str, n: int):
+    """A material template of the port at its defaults, its procedural
+    canvas n² (emboss takes an n² height input)."""
+    from kanter_core_tpu_torch import models
+
+    if name == "emboss":
+        return models.emboss_graph()
+    return getattr(models, f"{name}_material_graph")(size=n)
+
+
+def template_edits(name: str, s) -> list:
+    """`[(label, edited node id, apply(lg))]`: phase 11's edits of a template
+    session — a Levels gamma (wood ring contrast 1.6→2.0, stone crack gamma
+    2.4→1.8, metal scratch gamma 3.2→2.5), a GradientMap stop colour (brick,
+    cobblestone), a Transform rotation (wood 0→30°, metal 0→15°), a Blur
+    sigma (emboss 1.0→2.0)."""
+    from kanter_core_tpu_torch import NodeTypeKind as K
+
+    def gamma(old, new):
+        node = s.node(K.LEVELS, lambda p: np.float32(p[2]) == np.float32(old))
+        p = s.lg.node(node).node_type.payload
+        return (f"gamma-{new}", node,
+                lambda lg: lg.set_levels(node, p[0], p[1], new, p[3], p[4]))
+
+    def rotation(degrees):
+        node = s.node(K.TRANSFORM)
+        p = s.lg.node(node).node_type.payload
+        return (f"rotation-{degrees}", node,
+                lambda lg: lg.set_transform(node, p[0], p[1], degrees, p[3], p[4]))
+
+    def stop_colour(stop, rgba):
+        node = s.node(K.GRADIENT_MAP)
+        stops = [list(x) for x in s.lg.node(node).node_type.payload]
+        stops[stop][1:] = rgba
+        return ("stop-colour", node,
+                lambda lg: lg.set_gradient_map(node, [tuple(x) for x in stops]))
+
+    if name == "emboss":
+        node = s.node(K.BLUR)
+        return [("sigma-edit", node, lambda lg: lg.set_blur_sigma(node, EMBOSS_SIGMA_EDIT))]
+    return {
+        "wood": lambda: [gamma(1.6, 2.0), rotation(30.0)],
+        "stone": lambda: [gamma(2.4, 1.8)],
+        "metal": lambda: [gamma(3.2, 2.5), rotation(15.0)],
+        "brick": lambda: [stop_colour(3, (0.75, 0.25, 0.2, 1.0))],
+        "cobblestone": lambda: [stop_colour(2, (0.5, 0.52, 0.4, 1.0))],
+    }[name]()
+
+
+def nested_emboss_graph():
+    """The emboss graph wrapped in a Graph node: outer InputGray → Graph
+    (slot 0 feeds the inner Input node 0) → OutputGray `emboss`."""
+    from kanter_core_tpu_torch import Node, NodeGraph, NodeType, SlotId
+    from kanter_core_tpu_torch.models import emboss_graph
+
+    inner = emboss_graph()
+    (inner_out,) = inner.output_ids()
+    g = NodeGraph()
+    inp = g.add_node(Node(NodeType.InputGray("height")))
+    node = g.add_node(Node(NodeType.Graph(inner)))
+    g.connect(inp, node, SlotId(0), SlotId(0))
+    out = g.add_node(Node(NodeType.OutputGray("emboss")))
+    g.connect(node, out, inner_out, SlotId(0))
+    return g
+
+
+def drive_template(name: str, device: str, n: int, timed: bool = False, mesh=None,
+                   route: str = "fused", capture: bool = False):
+    """Render template `name` at n² on `device` (sharded over `mesh`) on
+    `route`, reading every output, then each of its edits, re-reading every
+    output after each, on a live graph that keeps every node's data; the
+    counters set to 0 just before. `name` "nested_emboss" is the emboss
+    graph inside a Graph node. Returns the session, with `expected` (the
+    launches derived from the graph) and, with `capture`, `nodes` (every
+    node's planes after the last read) and `graph` (the edited graph)."""
+    from kanter_core_tpu_torch import NodeTypeKind
+
+    nested = name == "nested_emboss"
+    graph = nested_emboss_graph() if nested else template_graph(name, n)
+    bound = []
+    if nested or name == "emboss":
+        (inp,) = [x.node_id for x in graph.nodes if x.node_type.kind == NodeTypeKind.INPUT_GRAY]
+        bound = [(inp, np.random.default_rng(0).random((n, n), dtype=np.float32))]
+    s = Session(device, n, graph, bound, timed, keep=True, mesh=mesh, route=route)
+    try:
+        edits = [] if nested else template_edits(name, s)
+        names = sorted(s.outputs)
+        reset_counts()
+        s.read("render", names)
+        for label, _, apply in edits:
+            apply(s.lg)
+            s.read(label, names)
+        s.finish()
+        s.expected = s.expect_launches(evaluated_groups(s, [node for _, node, _ in edits]))
+        if capture:
+            s.nodes, s.graph = s.capture(), s.lg.node_graph.clone()
+    finally:
+        s.close()
+    return s
+
+
+def pow_class_compare(name, graph, cpu_nodes, card_nodes, cpu_u8, card_u8) -> dict:
+    """Card against CPU under the reference's pow allowance. A plane with no
+    pow upstream (no Levels of gamma ≠ 1, no Mix POW among the node and its
+    ancestors) must have 0 f32 mismatches. A Levels of gamma ≠ 1 whose
+    input is exact may differ only where `powf_glibc(t, γ) ≠ ds_pow(t, γ)`
+    for the CPU's `t` (both recomputed here). Planes further downstream are
+    counted, f32 and (outputs) u8, not held. Returns the counts."""
+    import torch
+    from kanter_core_tpu_torch import MixType, NodeTypeKind as K
+    from kanter_core_tpu_torch.compiler import _topo_order
+    from kanter_core_tpu_torch.ops.exact_math import ds_pow, powf_glibc
+    from kanter_core_tpu_torch.ops.levels import levels_t
+
+    def pow_node(node):
+        kind, p = node.node_type.kind, node.node_type.payload
+        return ((kind == K.LEVELS and np.float32(p[2]) != np.float32(1.0))
+                or (kind == K.MIX and p == MixType.POW))
+
+    tainted, report = set(), {"exact_planes": 0, "pow_nodes": [], "downstream": {}}
+    for node_id in _topo_order(graph):
+        node = graph.node(node_id)
+        parents = graph.get_parents(node_id)
+        upstream = any(p in tainted for p in parents)
+        keys = sorted(k for k in card_nodes if k[0] == node_id)
+        counts = [sum(int((a.view(np.int32) != b.view(np.int32)).sum())
+                      for a, b in zip(cpu_nodes[k], card_nodes[k])) for k in keys]
+        if not pow_node(node) and not upstream:
+            if any(counts):
+                raise AssertionError(f"{name}: node {int(node_id)} ({node.node_type.kind.value}) "
+                                     f"has no pow upstream but {counts} f32 mismatches")
+            report["exact_planes"] += sum(len(card_nodes[k]) for k in keys)
+            continue
+        tainted.add(node_id)
+        if pow_node(node) and not upstream and node.node_type.kind == K.LEVELS:
+            (edge,) = [e for e in graph.edges if e.input_id == node_id]
+            params = np.asarray(node.node_type.payload, np.float32)
+            gamma = float(params[2])
+            allowed = 0
+            for plane, got_cpu, got_card in zip(cpu_nodes[(edge.output_id, edge.output_slot)],
+                                                cpu_nodes[keys[0]], card_nodes[keys[0]]):
+                t = levels_t(torch.from_numpy(plane), params)
+                g = torch.full_like(t, gamma)
+                differ = (powf_glibc(t, g).view(torch.int32) != ds_pow(t, g).view(torch.int32))
+                bad = got_cpu.view(np.int32) != got_card.view(np.int32)
+                if (bad & ~differ.numpy()).any():
+                    raise AssertionError(f"{name}: Levels node {int(node_id)} differs outside "
+                                         "the pixels where glibc and ds_pow differ")
+                allowed += int(differ.sum())
+            report["pow_nodes"].append({"node": int(node_id), "gamma": gamma,
+                                        "f32_mismatches": sum(counts),
+                                        "pow_class_pixels": allowed})
+            continue
+        entry = {"kind": node.node_type.kind.value, "f32_mismatches": sum(counts)}
+        if node.node_type.kind in (K.OUTPUT_GRAY, K.OUTPUT_RGBA):
+            out_name = node.node_type.payload
+            entry["u8_mismatches"] = int((cpu_u8[out_name] != card_u8[out_name]).sum())
+            entry["output"] = out_name
+        report["downstream"][int(node_id)] = entry
+    return report
+
+
+def template_phase(mesh) -> dict:
+    """Phase 11: the six templates. Returns `{path name: (counts, blur
+    launches by sigma)}` of every 4096² sequence."""
+    import tempfile
+
+    import torch
+    from kanter_core_tpu_torch import (
+        Node, NodeGraph, NodeType, SlotData, SlotId, SlotImage, TextureProcessor, LiveGraph,
+    )
+    from kanter_core_tpu_torch.ops import exact_math, image_io
+    from kanter_core_tpu_torch.ops.levels import levels_plane
+    from kanter_core_tpu_torch.slot_image import gray_to_u8_srgb, rgba_to_u8_srgb
+
+    paths = {}
+    t0 = time.perf_counter()
+    kept = {}
+    for name in TEMPLATES:
+        fused = drive_template(name, "cuda", CANVAS, timed=True)
+        check_launches(name, fused)
+        pn = drive_template(name, "cuda", CANVAS, timed=True, route="no_fuse")
+        check_launches(name, pn)
+        compare_runs(name, pn.results, fused.results, "per-node vs fused")
+        log_read_times(name, fused, pn)
+        paths[f"{name}"] = (fused.counts[-1], fused.by_sigma)
+        paths[f"pernode_{name}"] = (pn.counts[-1], pn.by_sigma)
+        if name in ("wood", "brick"):
+            sharded = drive_template(name, "cuda", CANVAS, timed=True, mesh=mesh)
+            check_mesh_run(name, fused, sharded, [e["transform"] for e in fused.expected])
+            compare_runs(name, sharded.results, fused.results, "mesh vs single device")
+            paths[f"mesh_{name}"] = (sharded.counts[-1], sharded.by_sigma)
+            del sharded
+        if name in ("emboss", "wood"):
+            kept[name] = fused
+        del fused, pn
+        gc.collect()
+    log(f"phase 11 templates: {time.perf_counter() - t0:.1f} s")
+
+    # a Graph node wrapping emboss, fused and per node: the flat emboss's bits
+    flat = [r for r in kept["emboss"].results if r[0] == "render"]
+    for route in ("fused", "no_fuse"):
+        nested = drive_template("nested_emboss", "cuda", CANVAS, timed=True, route=route)
+        compare_runs("emboss", nested.results, flat, f"nested {route} vs flat")
+        log(f"nested emboss {route} launches: {nested.counts}")
+
+    # Write a 4096² RGBA map, decode it through an Image node
+    (_, _, albedo, albedo_u8), = [r for r in kept["wood"].results
+                                   if r[0] == "render" and r[1] == "albedo"]
+    del kept
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "albedo.png")
+        tp = TextureProcessor(memory_threshold=16 << 30, device="cuda")
+        try:
+            lg = tp.new_live_graph()
+            with lg.write() as g:
+                g.use_cache = True
+                inp = g.add_node(Node(NodeType.InputRgba("albedo")))
+                write = g.add_node(Node(NodeType.Write(path)))
+                g.connect(inp, write, SlotId(0), SlotId(0))
+                planes = [torch.from_numpy(p).cuda() for p in albedo]
+                g.add_input_slot_data(SlotData(inp, SlotId(0), SlotImage.Rgba(planes)))
+                img = g.add_node(Node(NodeType.Image(path)))
+                out = g.add_node(Node(NodeType.OutputRgba("decoded")))
+                g.connect(img, out, SlotId(0), SlotId(0))
+                g.request(write)
+            t_write = time.perf_counter()
+            with LiveGraph.await_clean_read(lg, write):
+                pass
+            t_write = (time.perf_counter() - t_write) * 1e3
+            if lg.fatal_error is not None:
+                raise lg.fatal_error
+            t_read = time.perf_counter()
+            px = TextureProcessor.buffer_rgba(lg, out, SlotId(0))
+            t_read = (time.perf_counter() - t_read) * 1e3
+            decoded = [p.host_data() for p in lg.slot_data(out, SlotId(0)).image.planes]
+        finally:
+            tp.shutdown_now()
+        export = albedo_u8.reshape(CANVAS, CANVAS, 4)
+        want = [export[:, :, c].astype(np.float32) / np.float32(255) for c in range(4)]
+        bad = sum(int((a.view(np.int32) != b.view(np.int32)).sum()) for a, b in zip(decoded, want))
+        same = np.array_equal(px, albedo_u8)
+        with open(path, "rb") as f:
+            data = f.read()
+        t = time.perf_counter()
+        image_io.encode_png(export)
+        encode_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        image_io.decode_png(data)
+        decode_ms = (time.perf_counter() - t) * 1e3
+    log(f"image/write {CANVAS}x{CANVAS} RGBA: Image planes vs u8/255 of the export {bad} f32 "
+        f"mismatches, re-export identical {same}; file {len(data)} bytes; encode {encode_ms:.1f} "
+        f"ms, decode {decode_ms:.1f} ms (host); Write dispatch {t_write:.1f} ms, Image read "
+        f"{t_read:.1f} ms wall")
+    if bad or not same:
+        raise AssertionError("the Image node did not decode what the Write node saved")
+
+    # pow on the card: ds_pow card = CPU, the sRGB export card = CPU, Levels timed
+    i = np.arange(256, dtype=np.float32)
+    a = np.ascontiguousarray(np.broadcast_to(i[:, None] / np.float32(255), (256, 256)))
+    b = np.ascontiguousarray(np.broadcast_to(np.float32(4) * i[None, :] / np.float32(255),
+                                             (256, 256)))
+    rng = np.random.default_rng(0)
+    big_a = rng.random((CANVAS, CANVAS), dtype=np.float32)
+    big_b = rng.random((CANVAS, CANVAS), dtype=np.float32) * np.float32(4)
+    for label, (x, y) in (("u8 grid", (a, b)), (f"{CANVAS}x{CANVAS}", (big_a, big_b))):
+        xc, yc = torch.from_numpy(x), torch.from_numpy(y)
+        card = exact_math.ds_pow(xc.cuda(), yc.cuda()).cpu()
+        cpu = exact_math.ds_pow(xc, yc)
+        glibc = exact_math.powf_glibc(xc, yc)
+        bad = mismatches(card, cpu)
+        pow_class = mismatches(cpu, glibc)
+        log(f"ds_pow {label}: card vs CPU {bad} mismatches; ds_pow vs glibc powf {pow_class} "
+            "(the pow class)")
+        if bad:
+            raise AssertionError(f"ds_pow differs between the card and the CPU on the {label}")
+    v = np.arange(256, dtype=np.float32) / np.float32(255)
+    grid = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(v, (4, 256))))
+    plane = torch.from_numpy(rng.random((CANVAS, CANVAS), dtype=np.float32))
+    for label, x in (("u8 grid", grid), (f"{CANVAS}x{CANVAS}", plane)):
+        for fn, k in ((gray_to_u8_srgb, 1), (rgba_to_u8_srgb, 4)):
+            card = fn(*[x.cuda()] * k).cpu()
+            cpu = fn(*[x] * k)
+            bad = int((card != cpu).sum())
+            log(f"sRGB export {label} {'gray' if k == 1 else 'rgba'}: card vs CPU {bad} u8 "
+                "words differ")
+            if bad:
+                raise AssertionError(f"the sRGB export differs between the card and the CPU")
+    x = plane.cuda()
+    for gamma in (1.6, 1.0):
+        params = np.asarray([0.2, 0.8, gamma, 0.0, 1.0], np.float32)
+        ms = time_cuda(lambda: levels_plane(x, params))
+        log(f"Levels {CANVAS}x{CANVAS} gamma {gamma}: {ms:.4f} ms (CUDA events, median of 20)")
+
+    # card against CPU at 1024² under the pow allowance
+    for name in TEMPLATES:
+        card = drive_template(name, "cuda", 1024, capture=True)
+        cpu = drive_template(name, "cpu", 1024, capture=True)
+        last = lambda s: {n: u8 for step, n, _, u8 in s.results if step == s.results[-1][0]}  # noqa: E731
+        report = pow_class_compare(name, cpu.graph, cpu.nodes, card.nodes, last(cpu), last(card))
+        if not report["pow_nodes"] and not report["downstream"]:
+            compare_runs(name, card.results, cpu.results)  # no pow: every read exact
+        log(f"card vs cpu {name} 1024x1024 (after its last edit): {json.dumps(report)}")
+        del card, cpu
+        gc.collect()
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def gap_ranking(entries) -> list:
-    """For each kernel: over the seven sequences, launches × (ms − bound) in
+    """For each kernel: over the 4096² sequences, launches × (ms − bound) in
     ms, the time a perfect kernel would give back; largest first. A blur
     launch takes the timing of its own sigma, a far JFA launch the mean far
     step, the near launch the near run."""
@@ -1062,6 +1430,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device")
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "kanter_core_tpu_torch")):
+        log(f"chip_smoke: no kanter_core_tpu_torch package beside {__file__}; run it from a "
+            "checkout of the repo")
         return 1
     sys.path.insert(0, ROOT)
     kp_blur, kp_dist, kp_warp = kernels()
@@ -1180,11 +1552,11 @@ def main() -> int:
     # and 5), the launches those derived from the graph; the flagship's over
     # four shards against one device; card vs CPU at 1024²
     pn_pbr = drive_pbr("cuda", CANVAS, timed=True, route="auto_update", keep=True)
-    check_pernode("pbr", pn_pbr)
+    check_launches("pbr", pn_pbr)
     compare_runs("pbr", pn_pbr.results, pbr.results, "per-node vs fused")
     log_read_times("pbr", pbr, pn_pbr)
     pn_flag = drive_flagship("cuda", CANVAS, timed=True, route="no_fuse")
-    check_pernode("flagship", pn_flag)
+    check_launches("flagship", pn_flag)
     compare_runs("flagship", pn_flag.results, flag.results, "per-node vs fused")
     log_read_times("flagship", flag, pn_flag)
     mesh_pn_flag = drive_flagship("cuda", CANVAS, timed=True, mesh=mesh, route="no_fuse")
@@ -1203,12 +1575,18 @@ def main() -> int:
                  drive_pbr("cpu", 1024, route="auto_update").results, "per-node card vs cpu")
     phase_done("per-node")
 
+    # 11. the six templates: fused, per node and (wood, brick) over the mesh
+    # at full size, a nested Graph, Image → Write, pow on the card, card vs
+    # CPU at 1024² under the pow allowance
+    template_paths = template_phase(mesh)
+    phase_done("templates")
+
     paths = {"pbr": (pbr_path, pbr_sigmas), "flagship": (flag_path, flag_sigmas),
              "mesh_pbr": (mesh_pbr_path, mesh_pbr_sigmas),
              "mesh_flagship": (mesh_flag_path, mesh_flag_sigmas),
              "pernode_pbr": (pn_pbr_path, pn_pbr_sigmas),
              "pernode_flagship": (pn_flag_path, pn_flag_sigmas),
-             "pernode_mesh_flagship": (mesh_pn_path, mesh_pn_sigmas)}
+             "pernode_mesh_flagship": (mesh_pn_path, mesh_pn_sigmas), **template_paths}
 
     def by_path(key):
         return {name: counts[key] for name, (counts, _) in paths.items()}

@@ -9,18 +9,17 @@ TPU kernel becomes a CUDA kernel whose plain torch version serves the CPU.
 
 This package never imports JAX or `kanter_core_tpu`.
 
-Ported so far: the fused route and the per-node route (taken under
-`auto_update` and with `fuse_subgraphs=False`) from `TextureProcessor`
-through `LiveGraph` to `buffer_rgba`, for the node kinds Value, InputGray/InputRgba,
-OutputGray/OutputRgba, Mix (every mode but POW), HeightToNormal,
-SeparateRgba, CombineRgba, Embed, Blur (CUDA kernel `csrc/blur.cu`), Noise,
-Pattern, Voronoi, Ramp, Curvature, AmbientOcclusion, Hsv, Distance (CUDA
-JFA step kernel `csrc/jfa.cu`) and Warp (CUDA gather kernel
-`csrc/warp.cu`) — every node of `graphs.flagship_graph`. Other kinds
-(Image, Graph, Write, Levels, GradientMap, Transform) raise a
-`NODE_PROCESSING` error when evaluated. `TextureProcessor(mesh=...)` holds
-the planes row-sharded over a device mesh (`parallel.make_mesh`), with the
-Blur and Warp block kernels run per shard after a ring halo exchange.
+Ported: the fused route and the per-node route (taken under `auto_update`
+and with `fuse_subgraphs=False`) from `TextureProcessor` through `LiveGraph`
+to `buffer_rgba` and `to_u8_srgb`, for all 26 node kinds: Blur (CUDA kernel
+`csrc/blur.cu`), Distance (CUDA JFA kernels `csrc/jfa.cu`) and Warp (CUDA
+gather kernel `csrc/warp.cu`) and the rest in plain torch, including the
+reference's pow (`ops.exact_math`: glibc `powf` on the CPU, `ds_pow` on a
+card), nested Graph nodes, and Image and Write through the port's own PNG
+codec (`ops.image_io`). `TextureProcessor(mesh=...)` holds the planes
+row-sharded over a device mesh (`parallel.make_mesh`), with the Blur and
+Warp block kernels run per shard after a ring halo exchange. The tiled,
+bucketed and bf16 routes are not ported.
 """
 
 from .edge import Edge

@@ -57,6 +57,37 @@ def build_library(name: str, sources: list, command: list, key: str = "",
     return path
 
 
+HOST_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "host.c")
+_host = None
+_host_lock = threading.Lock()
+
+
+def host_library():
+    """The host loops of `csrc/host.c` (glibc `powf` over arrays, the PNG
+    unfilter), built with the host's C compiler on first use and loaded
+    through ctypes. Raises a `TexProError` when the library cannot be
+    built: the CPU path has no other pow or unfilter."""
+    global _host
+    import ctypes
+
+    from .errors import ErrorKind, TexProError
+
+    with _host_lock:
+        if _host is None:
+            try:
+                path = build_library("kanter_host", [HOST_SOURCE],
+                                     ["cc", "-O2", "-shared", "-fPIC"], timeout=120)
+            except (OSError, RuntimeError, subprocess.TimeoutExpired) as e:
+                raise TexProError(ErrorKind.GENERIC, f"building csrc/host.c failed: {e}") from e
+            lib = ctypes.CDLL(path)
+            lib.kanter_powf_array.restype = None
+            lib.kanter_powf_array.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_size_t]
+            lib.kanter_png_unfilter.restype = ctypes.c_size_t
+            lib.kanter_png_unfilter.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_size_t] * 3
+            _host = lib
+        return _host
+
+
 # sm_90a keeps Hopper's arch-specific instructions available; -fmad=false
 # keeps every product separately rounded (the kernels' bit-exactness rests
 # on it); -Xptxas -v writes each kernel's registers and spills to the log

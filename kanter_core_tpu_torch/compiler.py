@@ -9,7 +9,14 @@ eagerly on the device of its bindings. What carries over unchanged:
   fields of the parametric nodes — see `collect_value_bindings` —,
   `InputGray`/`InputRgba` planes, `Embed` planes, and the preset planes of a
   partition's clean boundary), so an edit re-runs the cached evaluator with
-  new bindings;
+  new bindings; an Image node decodes its file on every evaluation (the JAX
+  package re-decodes the Image nodes of each dirty partition);
+- a nested Graph node is inlined: its graph is evaluated in place with its
+  arguments under the prefix `g<node id>_` (nested graphs nest the
+  prefixes), outer input slot n feeding inner Input node n, and its outputs
+  re-keyed as `SlotId(inner output node id)`. A Write node is a host sink
+  the evaluator cannot hold: it yields nothing here, and the engine runs
+  Write nodes, and Graph nodes that nest one, on the per-node route;
 - the resize pass before every node (`calculate_size` + `resample_plane`),
   with the eager path's edge-insertion order for policy ties;
 - the output layout (`call_with_layout`): every output plane is reported
@@ -35,8 +42,7 @@ procedural planes are made) are the op modules', which the per-node route
 
 Not carried over: `_const_guard` and the `optimization_barrier` shims, which
 keep XLA's constant folder away from constant planes — eager torch does not
-fold. Node kinds whose ops are not yet ported (Image, Graph, Write, Levels,
-GradientMap and Transform) raise a `NODE_PROCESSING` error.
+fold.
 """
 
 from __future__ import annotations
@@ -55,18 +61,21 @@ from .node import NodeTypeKind
 from .node_graph import NodeGraph
 from .ops.ambient_occlusion import ao_plane
 from .ops.blur import blur_images
-from .ops.common import Placement, connected_input, gray_input, not_ported
+from .ops.common import Placement, connected_input, gray_input
 from .ops.curvature import curvature_plane
 from .ops.distance import distance_plane
+from .ops.gradient import gradient_bindings, gradient_planes
 from .ops.height_to_normal import h2n_planes
 from .ops.hsv import hsv_bindings, hsv_planes
-from .ops.inout import no_outer_input, output_planes, value_plane
+from .ops.inout import image_node_planes, no_outer_input, output_planes, value_plane
+from .ops.levels import levels_bindings, levels_images
 from .ops.mix import mix_images
 from .ops.noise import noise_bindings, noise_source
 from .ops.pattern import pattern_bindings, pattern_source
 from .ops.ramp import ramp_bindings, ramp_source
 from .ops.resize import calculate_size, resample_any
 from .ops.separate_combine import combine_planes, separate_planes
+from .ops.transform import transform_bindings, transform_images
 from .ops.voronoi import voronoi_bindings, voronoi_source
 from .ops.warp import warp_bindings, warp_images
 
@@ -142,10 +151,16 @@ class GraphCompiler:
         # planes are arguments instead of being re-evaluated.
         self.preset = dict(preset or {})
 
-    def _eval_graph(self, graph: NodeGraph, args: dict) -> dict:
-        """Returns {(node_id, slot_id): ImgVal} for every node in `graph`."""
+    def _eval_graph(self, graph: NodeGraph, args: dict, prefix: str = "",
+                    outer_inputs: Optional[dict] = None) -> dict:
+        """Returns {(node_id, slot_id): ImgVal} for every node in `graph`.
+
+        `prefix` namespaces the argument keys of an inlined nested graph;
+        `outer_inputs` maps its inner Input node ids to the outer ImgVals
+        (`graph.rs:25-31`). Presets apply to the outermost graph only."""
         values: dict = {}
-        preset_nodes = {nid for nid, _ in self.preset}
+        ordered_outer = [outer_inputs[k] for k in sorted(outer_inputs)] if outer_inputs else []
+        preset_nodes = {nid for nid, _ in self.preset} if prefix == "" else set()
 
         for node_id in _topo_order(graph):
             if node_id in preset_nodes:
@@ -191,11 +206,11 @@ class GraphCompiler:
                         by_slot[edge.input_slot] = sd.img
                         break
 
-            for slot_id, img in self._emit(node, by_slot, args):
+            for slot_id, img in self._emit(node, by_slot, args, prefix, ordered_outer):
                 values[(node_id, slot_id)] = img
         return values
 
-    def _emit(self, node, by_slot: dict, args):
+    def _emit(self, node, by_slot: dict, args, prefix: str, ordered_outer: list):
         """The node's `[(output SlotId, ImgVal)]` from its inputs' ImgVals by
         input slot. The rules are the op modules', shared with the per-node
         route (`ops.process_node`)."""
@@ -209,22 +224,32 @@ class GraphCompiler:
         def one(out_planes):
             return [(SlotId(0), ImgVal(out_planes))]
 
+        def arg(name):
+            return args[f"{prefix}{name}_{nid}"]
+
         if kind == K.VALUE:
             # scalar argument → 1×1 plane
-            return one([value_plane(args[f"value_{nid}"], self.device)])
+            return one([value_plane(arg("value"), self.device)])
+
+        if kind == K.IMAGE:
+            return one(image_node_planes(node.node_type.payload, place))
 
         if kind == K.INPUT_RGBA:
-            if "input_rgba_first" not in args:
+            # the first outer input (`input_rgba.rs:7-13` indexes [0])
+            if ordered_outer:
+                return [(SlotId(0), ordered_outer[0])]
+            if f"{prefix}input_rgba_first" not in args:
                 raise no_outer_input()
-            return one(list(args["input_rgba_first"]))
+            return one(list(args[f"{prefix}input_rgba_first"]))
 
         if kind == K.INPUT_GRAY:
-            key = f"input_{nid}"
+            key = f"{prefix}input_{nid}"
             if key not in args:
                 raise TexProError(
                     ErrorKind.INVALID_BUFFER_COUNT, f"InputGray node {nid} has no bound input"
                 )
-            return one(list(args[key]))
+            bound = args[key]
+            return [(SlotId(0), bound if isinstance(bound, ImgVal) else ImgVal(bound))]
 
         if kind in (K.OUTPUT_GRAY, K.OUTPUT_RGBA):
             connected = planes[min(planes)] if planes else None
@@ -246,7 +271,7 @@ class GraphCompiler:
             return one(combine_planes(planes, place))
 
         if kind == K.EMBED:
-            embedded = args.get(f"embed_{int(node.node_type.payload)}")
+            embedded = args.get(f"{prefix}embed_{int(node.node_type.payload)}")
             if embedded is None:
                 raise TexProError(
                     ErrorKind.INVALID_BUFFER_COUNT,
@@ -255,38 +280,62 @@ class GraphCompiler:
             return one(list(embedded))
 
         if kind == K.HSV:
-            return one(hsv_planes(connected_input(inp, "Hsv"), args[f"hsv_{nid}"]))
+            return one(hsv_planes(connected_input(inp, "Hsv"), arg("hsv")))
 
         if kind == K.CURVATURE:
-            return one([curvature_plane(gray_input(inp, "Curvature"), args[f"curv_{nid}"])])
+            return one([curvature_plane(gray_input(inp, "Curvature"), arg("curv"))])
 
         if kind == K.DISTANCE:
-            return one([distance_plane(gray_input(inp, "Distance"), args[f"dist_{nid}"])])
+            return one([distance_plane(gray_input(inp, "Distance"), arg("dist"))])
 
         if kind == K.AMBIENT_OCCLUSION:
             radius = node.node_type.payload[1]
             plane = gray_input(inp, "AmbientOcclusion")
-            return one([ao_plane(plane, args[f"ao_{nid}"], radius)])
+            return one([ao_plane(plane, arg("ao"), radius)])
+
+        if kind == K.LEVELS:
+            return one(levels_images(inp, arg("levels")))
+
+        if kind == K.GRADIENT_MAP:
+            return one(gradient_planes(inp, arg("grad")))
+
+        if kind == K.TRANSFORM:
+            return one(transform_images(inp, arg("xform")))
 
         if kind == K.NOISE:
-            return one([noise_source(args[f"noise_{nid}"], place)])
+            return one([noise_source(arg("noise"), place)])
 
         if kind == K.PATTERN:
             # the kind is structure, not an argument
-            mask, cells = pattern_source(node.node_type.payload[2], args[f"pattern_{nid}"], place)
+            mask, cells = pattern_source(node.node_type.payload[2], arg("pattern"), place)
             return [(SlotId(0), ImgVal([mask])), (SlotId(1), ImgVal([cells]))]
 
         if kind == K.VORONOI:
-            outs = voronoi_source(args[f"voronoi_{nid}"], place)
+            outs = voronoi_source(arg("voronoi"), place)
             return [(SlotId(i), ImgVal([p])) for i, p in enumerate(outs)]
 
         if kind == K.RAMP:
-            return one([ramp_source(node.node_type.payload[2], args[f"ramp_{nid}"], place)])
+            return one([ramp_source(node.node_type.payload[2], arg("ramp"), place)])
 
         if kind == K.WARP:
-            return one(warp_images(inp, planes.get(SlotId(1)), args[f"warp_{nid}"]))
+            return one(warp_images(inp, planes.get(SlotId(1)), arg("warp")))
 
-        raise not_ported(kind)
+        if kind == K.GRAPH:
+            nested = node.node_type.payload
+            # outer input slot n ≡ inner Input node n (`node_graph.rs:271-313`)
+            outer = {NodeId(int(slot)): img for slot, img in by_slot.items()}
+            nested_prefix = f"{prefix}g{nid}_"
+            nested_args = dict(args)
+            for inner_id, img in outer.items():
+                nested_args[f"{nested_prefix}input_{int(inner_id)}"] = img
+            inner = self._eval_graph(nested, nested_args, nested_prefix, outer)
+            return [(SlotId(int(out_id)), inner[(out_id, SlotId(0))])
+                    for out_id in nested.output_ids()]
+
+        if kind == K.WRITE:
+            return []  # a host sink: the engine runs it on the per-node route
+
+        raise TexProError(ErrorKind.INVALID_NODE_TYPE, f"cannot evaluate {node.node_type!r}")
 
 
 class CompiledGraph:
@@ -332,19 +381,34 @@ class CompiledGraph:
 
 def _normalize_values(graph_json):
     """Zero out the payload fields that are evaluator arguments (Value
-    constants, Curvature/AO strength, Distance spread, Hsv adjust, the
-    procedural sources' cells/seed/persistence/mortar/bevel/jitter/angle/
-    centre/scale, Warp angle and intensity), so two graphs differing only in
-    those share one cached evaluator. What shapes the evaluation stays:
-    sizes, octaves, Pattern and Ramp kinds, the AO radius, Blur sigma. Warp
-    is zeroed whole: the JAX package keeps its intensity's halo bucket for
-    the tiled and mesh programs, which the port does not have."""
+    constants, Levels and Transform parameters, GradientMap stop values,
+    Curvature/AO strength, Distance spread, Hsv adjust, the procedural
+    sources' cells/seed/persistence/mortar/bevel/jitter/angle/centre/scale,
+    Warp angle and intensity), recursing into nested graphs, so two graphs
+    differing only in those share one cached evaluator. What shapes the
+    evaluation stays: sizes, octaves, Pattern and Ramp kinds, the AO
+    radius, Blur sigma, the GradientMap stop count, Image and Write paths.
+    Warp is zeroed whole: the JAX package keeps its intensity's halo bucket
+    for the tiled and mesh programs, which the port does not have."""
     out = {"nodes": [], "edges": graph_json["edges"]}
     for node in graph_json["nodes"]:
         node_type = node["node_type"]
         if isinstance(node_type, dict):
             if "Value" in node_type:
                 node = dict(node, node_type={"Value": 0.0})
+            elif "Levels" in node_type:
+                node = dict(node, node_type={"Levels": {
+                    "in_lo": 0.0, "in_hi": 0.0, "gamma": 0.0, "out_lo": 0.0, "out_hi": 0.0,
+                }})
+            elif "GradientMap" in node_type:
+                node = dict(node, node_type={"GradientMap": {
+                    "stops": [[0.0] * 5] * len(node_type["GradientMap"]["stops"]),
+                }})
+            elif "Transform" in node_type:
+                node = dict(node, node_type={"Transform": {
+                    "offset_x": 0.0, "offset_y": 0.0, "rotation": 0.0,
+                    "scale_x": 0.0, "scale_y": 0.0,
+                }})
             elif "Curvature" in node_type:
                 node = dict(node, node_type={"Curvature": 0.0})
             elif "AmbientOcclusion" in node_type:
@@ -390,33 +454,35 @@ def graph_fingerprint(node_graph: NodeGraph, extra: str = "") -> str:
     return hashlib.blake2b(blob.encode(), digest_size=16).hexdigest()
 
 
-def collect_value_bindings(node_graph: NodeGraph) -> dict:
+def collect_value_bindings(node_graph: NodeGraph, prefix: str = "") -> dict:
     """The current evaluator arguments of every node (the payload fields
-    `_normalize_values` zeroes), as overrides."""
+    `_normalize_values` zeroes), as overrides, recursing into nested graphs
+    under their prefixes."""
     K = NodeTypeKind
+    scalar = {K.VALUE: "value", K.CURVATURE: "curv", K.DISTANCE: "dist"}
+    derived = {
+        K.LEVELS: ("levels", levels_bindings),
+        K.HSV: ("hsv", hsv_bindings),
+        K.NOISE: ("noise", noise_bindings),
+        K.PATTERN: ("pattern", pattern_bindings),
+        K.VORONOI: ("voronoi", voronoi_bindings),
+        K.RAMP: ("ramp", ramp_bindings),
+        K.GRADIENT_MAP: ("grad", gradient_bindings),
+        K.TRANSFORM: ("xform", transform_bindings),
+        K.WARP: ("warp", warp_bindings),
+    }
     bindings = {}
     for node in node_graph.nodes:
         kind = node.node_type.kind
         payload = node.node_type.payload
         nid = int(node.node_id)
-        if kind == K.VALUE:
-            bindings[f"value_{nid}"] = np.float32(payload)
-        elif kind == K.CURVATURE:
-            bindings[f"curv_{nid}"] = np.float32(payload)
+        if kind in scalar:
+            bindings[f"{prefix}{scalar[kind]}_{nid}"] = np.float32(payload)
         elif kind == K.AMBIENT_OCCLUSION:
-            bindings[f"ao_{nid}"] = np.float32(payload[0])
-        elif kind == K.DISTANCE:
-            bindings[f"dist_{nid}"] = np.float32(payload)
-        elif kind == K.HSV:
-            bindings[f"hsv_{nid}"] = hsv_bindings(payload)
-        elif kind == K.NOISE:
-            bindings[f"noise_{nid}"] = noise_bindings(payload)
-        elif kind == K.PATTERN:
-            bindings[f"pattern_{nid}"] = pattern_bindings(payload)
-        elif kind == K.VORONOI:
-            bindings[f"voronoi_{nid}"] = voronoi_bindings(payload)
-        elif kind == K.RAMP:
-            bindings[f"ramp_{nid}"] = ramp_bindings(payload)
-        elif kind == K.WARP:
-            bindings[f"warp_{nid}"] = warp_bindings(payload)
+            bindings[f"{prefix}ao_{nid}"] = np.float32(payload[0])
+        elif kind in derived:
+            name, fn = derived[kind]
+            bindings[f"{prefix}{name}_{nid}"] = fn(payload)
+        elif kind == K.GRAPH:
+            bindings.update(collect_value_bindings(payload, f"{prefix}g{nid}_"))
     return bindings

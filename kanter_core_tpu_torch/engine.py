@@ -34,8 +34,11 @@ read on another in launch order. A worker's error (a CUDA error, a kernel
 that does not build) commits as the graph's error; nothing is rerun on
 another device or on a plain version.
 
-Not yet ported: Write sinks (their node kind), and the tiled, bucketed and
-segmented routes.
+A Write node, and a Graph node that nests one, is a host sink the fused
+evaluator cannot hold: the fused route carves it out of the partition and
+the per-node route runs it once its inputs are clean, as in the JAX package.
+
+Not yet ported: the tiled, bucketed and segmented routes.
 """
 
 from __future__ import annotations

@@ -9,10 +9,8 @@ input edges by input slot, places the inputs on the processor's device (row-
 sharded over its mesh), resizes mismatched inputs per the node's resize
 policy and filter, re-keys them to the consuming node, dispatches on the
 node type, and checks the output count against the node's output slots.
-
-Node kinds whose ops are not yet ported (Image, Graph, Write, Levels,
-GradientMap, Transform) raise the same `NODE_PROCESSING` error on both
-routes (`common.not_ported`).
+Every one of the 26 node kinds has its op; a Graph node runs its nested
+graph as a throwaway live graph on the same processor (`graph_op`).
 
 The op modules are imported where they are used: `slot_image` imports
 `ops.common`, so this package initializes while the graph model is still
@@ -40,15 +38,17 @@ def assign_slot_ids(slot_datas, edges):
     return output
 
 
-def process_node_internal(node, slot_datas, embedded_slot_datas, input_slot_datas, place):
+def process_node_internal(node, slot_datas, embedded_slot_datas, input_slot_datas, place,
+                          tex_pro):
     """The node's output slot datas from its re-keyed inputs; `place` is the
-    processor's `common.Placement`."""
+    processor's `common.Placement`, `tex_pro` the processor (a Graph node
+    runs its nested graph there)."""
     from ..node import NodeTypeKind
     from . import (
-        ambient_occlusion, blur, curvature, distance, embed, height_to_normal, hsv,
-        inout, mix, noise, pattern, ramp, separate_combine, voronoi, warp,
+        ambient_occlusion, blur, curvature, distance, embed, gradient, graph_op,
+        height_to_normal, hsv, inout, levels, mix, noise, pattern, ramp,
+        separate_combine, transform, voronoi, warp,
     )
-    from .common import not_ported
 
     kind = node.node_type.kind
     payload = node.node_type.payload
@@ -60,8 +60,14 @@ def process_node_internal(node, slot_datas, embedded_slot_datas, input_slot_data
         output = inout.process_input_gray(node, input_slot_datas)
     elif kind in (K.OUTPUT_RGBA, K.OUTPUT_GRAY):
         output = inout.process_output(slot_datas, node, place)
+    elif kind == K.GRAPH:
+        output = graph_op.process(slot_datas, node, tex_pro)
+    elif kind == K.IMAGE:
+        output = inout.process_image(node, payload, place)
     elif kind == K.EMBED:
         output = embed.process(node, embedded_slot_datas, payload)
+    elif kind == K.WRITE:
+        output = inout.process_write(slot_datas, payload)
     elif kind == K.VALUE:
         output = inout.process_value(node, payload, place.device)
     elif kind == K.MIX:
@@ -78,6 +84,8 @@ def process_node_internal(node, slot_datas, embedded_slot_datas, input_slot_data
         output = hsv.process(slot_datas, node)
     elif kind == K.BLUR:
         output = blur.process(slot_datas, node, payload)
+    elif kind == K.LEVELS:
+        output = levels.process(slot_datas, node)
     elif kind == K.NOISE:
         output = noise.process(node, place)
     elif kind == K.PATTERN:
@@ -86,6 +94,10 @@ def process_node_internal(node, slot_datas, embedded_slot_datas, input_slot_data
         output = voronoi.process(node, place)
     elif kind == K.RAMP:
         output = ramp.process(node, place)
+    elif kind == K.GRADIENT_MAP:
+        output = gradient.process(slot_datas, node)
+    elif kind == K.TRANSFORM:
+        output = transform.process(slot_datas, node)
     elif kind == K.WARP:
         output = warp.process(slot_datas, node)
     elif kind == K.SEPARATE_RGBA:
@@ -93,7 +105,7 @@ def process_node_internal(node, slot_datas, embedded_slot_datas, input_slot_data
     elif kind == K.COMBINE_RGBA:
         output = separate_combine.process_combine(slot_datas, node, place)
     else:
-        raise not_ported(kind)
+        raise TexProError(ErrorKind.INVALID_NODE_TYPE, f"no op for {node.node_type!r}")
 
     if kind not in (K.OUTPUT_GRAY, K.OUTPUT_RGBA) and len(output) != len(node.output_slots()):
         raise TexProError(
@@ -146,5 +158,5 @@ def process_node(node, slot_datas, embedded_slot_datas, input_slot_datas, edges,
     )
     slot_datas = assign_slot_ids(slot_datas, edges)
     return process_node_internal(
-        node, slot_datas, embedded_slot_datas, input_slot_datas, place
+        node, slot_datas, embedded_slot_datas, input_slot_datas, place, tex_pro
     )

@@ -3,7 +3,7 @@
 Besides the slot lookups and the u8 conversion, this holds what the two
 routes share: `Placement` makes the constant and procedural planes of a
 processor on its device (row-sharded over its mesh), the plane-list rules
-(`as_type`, `gray_input`, `not_ported`) are the ones both the fused
+(`as_type`, `connected_input`, `gray_input`) are the ones both the fused
 evaluator (`compiler.GraphCompiler._emit`) and the per-node ops apply, and
 `NodePlanes` turns a per-node dispatch's slot datas into plane tensors and
 its outputs back into slot datas.
@@ -147,11 +147,6 @@ def gray_input(planes, what: str):
     if planes is None or len(planes) == 4:
         raise TexProError(ErrorKind.INVALID_BUFFER_COUNT, f"{what} needs a Gray input")
     return planes[0]
-
-
-def not_ported(kind) -> TexProError:
-    """The error of a node kind whose op is not yet ported, on either route."""
-    return TexProError(ErrorKind.NODE_PROCESSING, f"{kind.value} nodes are not yet ported")
 
 
 class NodePlanes:

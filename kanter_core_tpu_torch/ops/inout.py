@@ -1,9 +1,10 @@
-"""Value / Input / Output ops.
+"""Value / Image / Write / Input / Output ops.
 
-Port of `kanter_core_tpu/ops/inout.py` (`vismut_core/src/node/{value,
-input_rgba,input_gray,output}.rs`): the per-node forms, and the rules the
-fused evaluator (`compiler.GraphCompiler._emit`) shares with them. The
-Image and Write ops are not yet ported.
+Port of `kanter_core_tpu/ops/inout.py` (`vismut_core/src/node/{value,image,
+write,input_rgba,input_gray,output}.rs`): the per-node forms, and the rules
+the fused evaluator (`compiler.GraphCompiler._emit`) shares with them. Image
+decodes with the port's own PNG codec (`image_io`) and places its planes
+where the processor keeps them; Write encodes its input's u8 export.
 """
 
 from __future__ import annotations
@@ -15,12 +16,39 @@ from ..errors import ErrorKind, TexProError
 from ..ids import SlotId
 from ..slot_data import SlotData
 from .common import NodePlanes
+from .image_io import image_planes, save_rgba_png
 
 
 def value_plane(value, device) -> torch.Tensor:
     """The 1×1 Gray constant of a Value node (`value.rs:14-26`), on
     `device`; consumers upscale it through their resize policy."""
     return torch.full((1, 1), float(np.float32(value)), dtype=torch.float32, device=device)
+
+
+def image_node_planes(path, place) -> list:
+    """The four planes of an Image node's file (the 1×1 magenta placeholder
+    when it cannot be read, `image.rs:11-19`), placed by `place`."""
+    return [place.place(torch.from_numpy(p)) for p in image_planes(path)]
+
+
+def process_image(node, path, place):
+    io = NodePlanes([], node)
+    return io.outputs([(SlotId(0), image_node_planes(path, place))])
+
+
+def process_write(slot_datas, path):
+    """The u8 export of the first input, saved as a PNG (`write.rs:5-21`);
+    no outputs. A save failure — an unwritable path, or an extension other
+    than `.png` — raises an `IO` error, which fails only this graph (the
+    JAX package lets PIL's `ValueError` for an unknown extension escape,
+    which its engine treats as fatal)."""
+    if slot_datas:
+        slot_data = slot_datas[0]
+        try:
+            save_rgba_png(path, slot_data.image.to_u8(), slot_data.size())
+        except (OSError, ValueError) as e:
+            raise TexProError(ErrorKind.IO, f"Write node could not save {path!r}: {e}") from e
+    return []
 
 
 def no_outer_input() -> TexProError:

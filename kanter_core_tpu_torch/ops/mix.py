@@ -8,25 +8,25 @@ on its own — eager torch never contracts a product into its consumer's add
 (never use the fused forms `alpha=`, `lerp` or `addcmul` here). Division is
 tensor by tensor, which is IEEE division on every device.
 
+POW is the reference's f32 pow on the planes' device
+(`exact_math.pow_f32`): glibc `powf` on the CPU, `ds_pow` on a card.
+
 `mix_images` holds the node's rules on plane lists (a missing side is a 0.0
 image of the other side's size and type, a missing pair a 1×1 Gray 0.0, the
 right side coerced to the left's type, an RGBA result's alpha 1); the fused
 evaluator and the per-node `process` both call it.
-
-POW is not yet ported: `torch.pow` does not reproduce glibc `powf`, which the
-reference's CPU path is, so it raises a `NODE_PROCESSING` error.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..errors import ErrorKind, TexProError
 from ..geometry import Size
 from ..ids import SlotId
 from ..node import MixType
 from ..parallel.sharded import map_bands
 from .common import NodePlanes, as_type
+from .exact_math import pow_f32
 
 
 def _screen(l, r):
@@ -45,6 +45,7 @@ _OPS = {
     MixType.SUBTRACT: lambda l, r: l - r,
     MixType.MULTIPLY: lambda l, r: l * r,
     MixType.DIVIDE: lambda l, r: l / r,
+    MixType.POW: pow_f32,
     MixType.DARKEN: torch.minimum,
     MixType.LIGHTEN: torch.maximum,
     MixType.DIFFERENCE: lambda l, r: torch.abs(l - r),
@@ -55,12 +56,7 @@ _OPS = {
 
 def _binary(mix_type: MixType):
     """The per-plane function of a Mix mode, on two same-shape f32 tensors."""
-    op = _OPS.get(mix_type)
-    if op is None:
-        raise TexProError(
-            ErrorKind.NODE_PROCESSING, f"Mix {mix_type.value} is not yet ported"
-        )
-    return op
+    return _OPS[mix_type]
 
 
 def _size(planes) -> Size:

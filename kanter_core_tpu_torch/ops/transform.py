@@ -1,15 +1,35 @@
-"""The Transform node's bilinear toroidal sampler, shared with Warp.
+"""Transform node: affine translate/rotate/scale with seamless wrap, and
+the bilinear toroidal sampler it shares with Warp.
 
-Port of `bilinear_wrap_gather` and the quarter-turn table of
-`kanter_core_tpu/ops/transform.py`; the Transform node itself is not ported
-yet. Plain torch, the JAX function's op sequence: floor, clip to ±1e9
-before the int cast, floor-mod wrap, flat-index gather of the four texels,
-and the lerp in the fixed association `nx0 + fv·(nx1 − nx0)`.
+Port of `kanter_core_tpu/ops/transform.py`. The output pixel at centre
+`(x+0.5, y+0.5)` bilinearly samples the input at the inverse-transformed
+coordinate, wrapping toroidally; the forward transform rotates by
+`rotation` degrees and scales by `(scale_x, scale_y)` around the canvas
+centre, then translates by `(offset_x, offset_y)` pixels. The cosine and
+sine (quarter turns from an exact table) and the reciprocal scales are
+computed on the host in f64 and rounded once (`transform_bindings`), so
+every consumer sees the same bits; the per-pixel coordinate math is plain
+torch in the JAX function's association, each product and sum rounding on
+its own, and there is no division on the device.
+
+`bilinear_wrap_gather`, the sampler: floor, clip to ±1e9 before the int
+cast, floor-mod wrap, flat-index gather of the four texels, and the lerp in
+the fixed association `nx0 + fv·(nx1 − nx0)`.
+
+Under a mesh the source rows of a rotated or scaled sample are unbounded,
+so the node gathers its input to the mesh's first device (one `transform`
+gather per plane), transforms it there and shards the result again, as
+Distance does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..ids import SlotId
+from ..parallel.sharded import ShardedPlane, shard_planes_rows
+from .common import NodePlanes, connected_input
 
 # exact quarter-turn unit vectors: keep axis-aligned angles gather-exact
 _QUARTER = {0.0: (1.0, 0.0), 90.0: (0.0, 1.0), 180.0: (-1.0, 0.0), 270.0: (0.0, -1.0)}
@@ -53,3 +73,61 @@ def bilinear_wrap_gather(planes, u: torch.Tensor, v: torch.Tensor, wh: int, ww: 
         nx1 = n01 + fu * (n11 - n01)
         outs.append(nx0 + fv * (nx1 - nx0))
     return tuple(outs)
+
+
+def transform_bindings(payload) -> dict:
+    """The `xform_<id>` argument: `(cos, sin)` of the rotation (exact at
+    quarter turns), the reciprocal scales and the pixel offsets, each f64
+    math rounded once to f32."""
+    ox, oy, deg, sx, sy = (float(v) for v in payload)
+    d = deg % 360.0
+    if d in _QUARTER:
+        cos, sin = _QUARTER[d]
+    else:
+        r = np.deg2rad(np.float64(d))
+        cos, sin = float(np.cos(r)), float(np.sin(r))
+    with np.errstate(divide="ignore"):
+        inv = np.float64(1.0) / np.asarray([sx, sy], np.float64)
+    return {
+        "cs": np.asarray([cos, sin], np.float32),
+        "inv_s": inv.astype(np.float32),
+        "off": np.asarray([ox, oy], np.float32),
+    }
+
+
+def transform_planes(planes, b: dict) -> tuple:
+    """The affine sample of every `[H, W]` plane of an image onto its own
+    canvas; `b` from `transform_bindings`."""
+    h, w = planes[0].shape
+    device = planes[0].device
+    cos, sin = (float(c) for c in b["cs"])
+    inv_x, inv_y = (float(c) for c in b["inv_s"])
+    off_x, off_y = (float(c) for c in b["off"])
+    cxc = float(np.float32(w) * np.float32(0.5))  # canvas centre (exact)
+    cyc = float(np.float32(h) * np.float32(0.5))
+    cx = torch.arange(w, dtype=torch.float32, device=device) + 0.5  # pixel centres
+    cy = torch.arange(h, dtype=torch.float32, device=device) + 0.5
+    px = (cx - cxc) - off_x
+    py = (cy - cyc) - off_y
+    # inverse rotation R(−θ), then inverse scale, one fixed association
+    qx = (px * cos)[None, :] + (py * sin)[:, None]
+    qy = (py * cos)[:, None] - (px * sin)[None, :]
+    u = (qx * inv_x) + float(np.float32(cxc) - np.float32(0.5))
+    v = (qy * inv_y) + float(np.float32(cyc) - np.float32(0.5))
+    return bilinear_wrap_gather(planes, u, v, h, w)
+
+
+def transform_images(planes, b: dict) -> list:
+    """Transform of an image's planes (tensors or `ShardedPlane`s)."""
+    planes = connected_input(planes, "Transform")
+    if isinstance(planes[0], ShardedPlane):
+        mesh = planes[0].mesh
+        whole = [p.gather(mesh.devices[0], "transform") for p in planes]
+        return [shard_planes_rows(mesh, p) for p in transform_planes(whole, b)]
+    return list(transform_planes(planes, b))
+
+
+def process(slot_datas, node):
+    io = NodePlanes(slot_datas, node)
+    planes = transform_images(io.named("input"), transform_bindings(node.node_type.payload))
+    return io.outputs([(SlotId(0), planes)])

@@ -41,13 +41,15 @@ ROW_AXIS = "rows"
 
 
 class MeshCounters:
-    """Ring exchanges (`ring_halos` calls) and gathers by cause: `distance` (Distance runs on one device), `blur_gate`
+    """Ring exchanges (`ring_halos` calls) and gathers by cause: `distance`
+    (Distance runs on one device), `transform` (a Transform node's source
+    rows are unbounded: one gather per plane), `blur_gate`
     and `warp_gate` (a geometry the block kernels cannot serve), `resize`
     (a sharded plane resized to another size), `export` (the u8 export of a
     sharded image) and `host` (a plane read back or evicted to host
     memory)."""
 
-    CAUSES = ("distance", "blur_gate", "warp_gate", "resize", "export", "host")
+    CAUSES = ("distance", "transform", "blur_gate", "warp_gate", "resize", "export", "host")
 
     def __init__(self):
         self._lock = threading.Lock()

@@ -37,8 +37,8 @@ class SlotData:
         return f"SlotData(node={int(self.node_id)}, slot={int(self.slot_id)}, size={self.size()})"
 
 
-# sRGB scalar helpers (`slot_data.rs:87-110`); the array form (`to_u8_srgb`)
-# is not yet ported.
+# sRGB scalar helpers (`slot_data.rs:87-110`); the array form is
+# `slot_image.srgb_to_linear`.
 def linear_to_srgb(value: float) -> float:
     if value <= 0.0:
         return value

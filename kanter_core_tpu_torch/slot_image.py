@@ -10,7 +10,10 @@ behavior: `f32_to_u8` is `((value.clamp(0,1) * 255.).min(255.)) as u8`
 (`slot_image.rs:142-144`) where Rust's `min` maps NaN to 255 and `as u8`
 truncates toward zero. It runs as plain torch on the planes' device; a
 row-sharded image is converted shard by shard and only its packed u8 rows
-are gathered to the host (one `export` gather per image).
+are gathered to the host (one `export` gather per image). `to_u8_srgb`
+applies the reference's `srgb_to_linear` first, with the pow of the
+planes' device (`ops.exact_math.pow_f32`: glibc on the CPU, `ds_pow` on a
+card), as the JAX package's exports do on its two backends.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from .errors import ErrorKind, TexProError
 from .geometry import Size
 from .ops.common import f32_to_u8, rgb_mean
+from .ops.exact_math import pow_f32
 from .parallel.sharded import ShardedPlane, map_bands
 from .transient_buffer import PlaneBuffer, Tier, plane_from_device, plane_from_host
 
@@ -44,6 +48,32 @@ def gray_to_u8(g: torch.Tensor) -> torch.Tensor:
 
 def rgba_to_u8(r, g, b, a) -> torch.Tensor:
     return _pack_u32(f32_to_u8(r), f32_to_u8(g), f32_to_u8(b), f32_to_u8(a))
+
+
+_F32_0_055 = float(np.float32(0.055))
+_F32_0_04045 = float(np.float32(0.04045))
+
+
+def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    """The reference's formula (`slot_data.rs:100-109`, applied by
+    `to_u8_srgb` despite the method's name, `slot_image.rs:172-175`); every
+    division is by a full tensor, every constant the f32 one."""
+    low = x / torch.full_like(x, 12.92)
+    high = pow_f32((x + _F32_0_055) / torch.full_like(x, 1.055), torch.full_like(x, 2.4))
+    return torch.where(x <= 0.0, x, torch.where(x <= _F32_0_04045, low, high))
+
+
+def _srgb_u8(x: torch.Tensor) -> torch.Tensor:
+    return f32_to_u8(srgb_to_linear(torch.clamp(x, 0.0, 1.0)))
+
+
+def gray_to_u8_srgb(g: torch.Tensor) -> torch.Tensor:
+    v = _srgb_u8(g)
+    return _pack_u32(v, v, v, torch.full_like(v, 255))
+
+
+def rgba_to_u8_srgb(r, g, b, a) -> torch.Tensor:
+    return _pack_u32(_srgb_u8(r), _srgb_u8(g), _srgb_u8(b), f32_to_u8(a))
 
 
 def _as_plane(obj) -> PlaneBuffer:
@@ -128,19 +158,21 @@ class SlotImage:
             return [torch.from_numpy(p.host_data()) for p in self.planes]
         return [p.data() for p in self.planes]
 
-    def to_u8(self) -> np.ndarray:
-        """Flat row-major interleaved RGBA u8 pixels."""
+    def _export(self, gray_fn, rgba_fn) -> np.ndarray:
         planes = self._tensors()
-        out = map_bands(rgba_to_u8 if self.is_rgba() else gray_to_u8, *planes)
+        out = map_bands(rgba_fn if self.is_rgba() else gray_fn, *planes)
         out = out.gather("cpu", "export") if isinstance(out, ShardedPlane) else out.cpu()
         # little-endian int32 words → interleaved RGBA bytes, zero-copy
         return np.ascontiguousarray(out.numpy()).view(np.uint8).reshape(-1)
 
+    def to_u8(self) -> np.ndarray:
+        """Flat row-major interleaved RGBA u8 pixels."""
+        return self._export(gray_to_u8, rgba_to_u8)
+
     def to_u8_srgb(self) -> np.ndarray:
-        raise TexProError(
-            ErrorKind.NODE_PROCESSING,
-            "to_u8_srgb is not yet ported (it needs a glibc-exact pow)",
-        )
+        """`to_u8` of the colour planes through `srgb_to_linear` (alpha
+        as it is)."""
+        return self._export(gray_to_u8_srgb, rgba_to_u8_srgb)
 
     def to_numpy_rgba(self) -> np.ndarray:
         """`[H, W, 4]` u8 view of `to_u8` (convenience)."""

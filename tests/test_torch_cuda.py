@@ -7,7 +7,9 @@ The CUDA kernels (the tiled blur, the JFA far steps and fused near run, the
 warp gather, and the blur and warp block kernels of the mesh route) must be bit-identical to
 their plain torch versions, and the PBR slice and the flagship must give
 the same f32 planes and u8 exports on the card as on the CPU, and over a
-four-shard mesh on the card as on one device.
+four-shard mesh on the card as on one device. The card's pow (`ds_pow`) and
+the sRGB export must match the CPU's, and a template with a Levels of
+gamma ≠ 1 must differ from the CPU only within the pow class.
 """
 
 import numpy as np
@@ -497,3 +499,76 @@ def test_per_node_kernel_node_on_card_matches_fused(card, kind, route):
     want_launches = {"blur": [4, 0, 0, 0], "distance": [0, *ladder, 0],
                      "warp": [0, 0, 0, 1]}[kind]
     assert launched == fused_launched == want_launches
+
+
+# --- the pow of the card, and the templates -----------------------------------
+
+
+def _u8_grid(device):
+    i = torch.arange(256, dtype=torch.float32)
+    a = (i[:, None] / torch.full((256, 1), 255.0)).expand(256, 256).contiguous()
+    b = (4.0 * i[None, :] / torch.full((1, 256), 255.0)).expand(256, 256).contiguous()
+    return a.to(device), b.to(device)
+
+
+def test_ds_pow_card_matches_cpu_on_the_u8_grid(card):
+    """The card's pow (`ds_pow` in plain torch) gives the bits of the same
+    function on the CPU, over all 65,536 u8-grid pairs and on special
+    values (a NaN at the same pixels, in the device's own bits: x86 makes
+    0xFFC00000, CUDA 0x7FFFFFFF)."""
+    from kanter_core_tpu_torch.ops import exact_math
+
+    a, b = _u8_grid("cpu")
+    special = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0, -2.0, 0.5, 3.0, -3.5, float("inf"),
+                            float("-inf"), float("nan"), 1e-30, 1e30, 100.5, -100.0])
+    sa, sb = torch.meshgrid(special, special, indexing="ij")
+    for x, y in ((a, b), (sa.contiguous(), sb.contiguous())):
+        got = exact_math.pow_f32(x.to(card), y.to(card)).cpu()
+        want = exact_math.ds_pow(x, y)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("planes", [1, 4], ids=["gray", "rgba"])
+def test_srgb_export_card_matches_cpu(card, planes):
+    """`to_u8_srgb` on the card (ds_pow) and on the CPU (glibc powf) give
+    the same u8 over the u8 grid and a random plane: the pow class is
+    absorbed by the u8 quantization."""
+    grid = (torch.arange(256, dtype=torch.float32) / torch.full((256,), 255.0)).expand(8, 256)
+    rng = np.random.default_rng(12)
+    noise = torch.from_numpy(rng.random((300, 256), dtype=np.float32) * np.float32(1.2)
+                             - np.float32(0.1))
+    for x in (grid.contiguous(), noise):
+        bufs = lambda d: [port.PlaneBuffer(device=x.to(d))] * planes  # noqa: E731
+        assert np.array_equal(port.SlotImage(bufs(card)).to_u8_srgb(),
+                              port.SlotImage(bufs("cpu")).to_u8_srgb())
+
+
+def test_template_card_vs_cpu_under_the_pow_rule(card):
+    """The wood template (a Levels of gamma 1.6, then 2.0) at 128² on the
+    card and on the CPU: every plane with no pow upstream exact, the Levels
+    different only where glibc `powf` and `ds_pow` differ for the CPU's `t`
+    (`chip_smoke.pow_class_compare`)."""
+    import chip_smoke
+
+    gpu = chip_smoke.drive_template("wood", "cuda", 128, capture=True)
+    cpu = chip_smoke.drive_template("wood", "cpu", 128, capture=True)
+    last = lambda s: {n: u8 for step, n, _, u8 in s.results if step == s.results[-1][0]}  # noqa: E731
+    report = chip_smoke.pow_class_compare("wood", cpu.graph, cpu.nodes, gpu.nodes,
+                                          last(cpu), last(gpu))
+    assert report["exact_planes"] > 0 and len(report["pow_nodes"]) == 1
+
+
+def test_transform_gathers_once_per_evaluation_on_a_two_shard_card_mesh(card):
+    """Wood over two shards on the card: its Transform gathers its gray
+    input once per evaluation (render and rotation edit), and every read is
+    bit-identical to one card."""
+    import chip_smoke
+
+    one = chip_smoke.drive_template("wood", "cuda", 128)
+    mesh = make_mesh(devices=[card] * 2)
+    two = chip_smoke.drive_template("wood", "cuda", 128, mesh=mesh)
+    chip_smoke.compare_runs("wood", two.results, one.results, "mesh vs single device")
+    transforms = [m["gathers"]["transform"] for m in two.mesh_counts]
+    assert transforms == [e["transform"] for e in one.expected] == [1, 1, 2]

@@ -1,13 +1,14 @@
 """Random graphs over the port's node kinds, through every route.
 
 The JAX package holds its routes together with a random-graph generator
-(`tests/test_fuzz_equivalence.py`), but it draws Image, Levels,
-GradientMap, Transform and nested Graph nodes, which the port does not
-have. This generator draws over the port's kinds: Input planes, Value, Mix
-(every mode but POW), Separate/Combine, HeightToNormal, Blur up to σ 12, the
-procedural sources (Noise, Pattern, Voronoi, Ramp), Hsv, Curvature,
-AmbientOcclusion, Distance and Warp, with random resize policies, filters
-and slot wiring, on small irregular canvases.
+(`tests/test_fuzz_equivalence.py`). This generator draws over the port's
+kinds: Input planes, Value, Mix (every mode but POW), Separate/Combine,
+HeightToNormal, Blur up to σ 12, the procedural sources (Noise, Pattern,
+Voronoi, Ramp), Hsv, Curvature, AmbientOcclusion, Distance and Warp, with
+random resize policies, filters and slot wiring, on small irregular
+canvases. The seeds from 16 on (`extended`) also draw Levels (gamma 1 and
+others), GradientMap, Transform and Mix POW; the first 16 seeds draw as
+they always did.
 
 Each graph's outputs are read through the JAX package's fused and per-node
 routes and the port's fused and per-node routes, on one device and over a
@@ -36,9 +37,11 @@ SIZES = [(16, 16), (24, 16), (12, 20), (8, 9)]
 MIX_MODES = [m for m in ref.MixType if m != ref.MixType.POW]
 
 
-def _random_graph(seed: int):
+def _random_graph(seed: int, extended: bool = False):
     """`(graph, {input node id: [planes]}, [output node ids])`, built in the
-    JAX package's model."""
+    JAX package's model; `extended` also draws the kinds of the later
+    slices (Levels, GradientMap, Transform, Mix POW)."""
+    mix_modes = list(ref.MixType) if extended else MIX_MODES
     rng = np.random.default_rng(seed)
     g = ref.NodeGraph()
     producers = []  # (node id, slot id, runtime RGBA?)
@@ -108,9 +111,9 @@ def _random_graph(seed: int):
 
     for _ in range(int(rng.integers(4, 9))):
         pool = list(producers)  # only earlier nodes: the graph stays acyclic
-        op = rng.integers(11)
+        op = rng.integers(15 if extended else 11)
         if op in (0, 1):  # Mix, with its slot wiring in either order
-            mode = MIX_MODES[rng.integers(len(MIX_MODES))]
+            mode = mix_modes[rng.integers(len(mix_modes))]
             wiring = [(0, 0.9), (1, 0.7)]
             if rng.random() < 0.5:
                 wiring.reverse()
@@ -153,7 +156,35 @@ def _random_graph(seed: int):
             node_type = ref.NodeType.Hsv(float(rng.random() * 720.0 - 360.0),
                                          float(rng.random() * 2.0), float(rng.random() * 2.0))
             connect(src, add(node_type, [(0, src[2])]), 0)
-        else:  # Warp: an image of either type, a Gray strength or none
+        elif op == 11:  # Levels, either type; gamma 1 half the time
+            src = pick(pool=pool)
+            lo, hi = sorted(float(v) for v in rng.random(2))
+            gamma = 1.0 if rng.random() < 0.5 else float(0.3 + rng.random() * 3.0)
+            out_lo, out_hi = (float(v) for v in rng.random(2))
+            connect(src, add(ref.NodeType.Levels(lo, hi, gamma, out_lo, out_hi), [(0, src[2])]), 0)
+        elif op == 12:  # GradientMap of a Gray input
+            src = pick(False, pool)
+            if src is None:
+                continue
+            count = int(rng.integers(2, 6))
+            stops = [(float(p), *(float(c) for c in rng.random(4)))
+                     for p in sorted(rng.random(count))]
+            connect(src, add(ref.NodeType.GradientMap(stops), [(0, True)]), 0)
+        elif op == 13:  # Transform, either type
+            src = pick(pool=pool)
+            angle = float(rng.integers(0, 4) * 90.0) if rng.random() < 0.3 else float(
+                rng.random() * 720.0 - 360.0)
+            node_type = ref.NodeType.Transform(
+                float(rng.random() * 20.0 - 10.0), float(rng.random() * 20.0 - 10.0), angle,
+                float(0.25 + rng.random() * 4.0), float(0.25 + rng.random() * 4.0))
+            connect(src, add(node_type, [(0, src[2])]), 0)
+        else:  # Warp (and, extended, a second Mix POW draw): an image of either type
+            if op == 14:
+                src, other = pick(pool=pool), pick(pool=pool)
+                node_id = add(ref.NodeType.Mix(ref.MixType.POW), [(0, src[2])], inputs_count=2)
+                connect(src, node_id, 0)
+                connect(other, node_id, 1)
+                continue
             src = pick(pool=pool)
             node_id = add(ref.NodeType.Warp(float(rng.random() * 360.0), float(rng.random() * 12.0)),
                           [(0, src[2])], inputs_count=2)
@@ -204,9 +235,9 @@ def _reads(pkg, graph_json, inputs, targets, fused, shards=None):
         tp.shutdown_now()
 
 
-@pytest.mark.parametrize("seed", range(16))
+@pytest.mark.parametrize("seed", range(28))
 def test_random_graph_every_route_bit_identical(seed):
-    graph, inputs, targets = _random_graph(seed)
+    graph, inputs, targets = _random_graph(seed, extended=seed >= 16)
     assert targets
     text = json.dumps(graph.to_json())
     want = _reads(ref, text, inputs, targets, fused=True)

@@ -140,25 +140,39 @@ def test_name_dedup_and_slot_typing_match_reference():
     assert build(port) == build(ref)
 
 
-def test_unported_kind_raises_not_yet_ported():
-    graph = port.NodeGraph()
-    value = graph.add_node(port.Node(port.NodeType.Value(0.5)))
-    levels = graph.add_node(port.Node(port.NodeType.Levels()))
-    graph.connect(value, levels, port.SlotId(0), port.SlotId(0))
-    with pytest.raises(port.TexProError) as err:
-        CompiledGraph(graph, "cpu").call_with_layout()
-    assert err.value.kind == port.ErrorKind.NODE_PROCESSING
-    assert "not yet ported" in str(err.value)
+def _compiled_pair(build):
+    """The slot-0 planes of the graph's one output, from the JAX package's
+    `CompiledGraph` and from the port's, on the CPU."""
+    ref_graph, ref_out = build(ref)
+    want = ref.CompiledGraph(ref_graph)()[(ref_out, ref.SlotId(0))]
+    graph, out = build(port)
+    planes, layout = CompiledGraph(graph, "cpu").call_with_layout()
+    got = [planes[i] for i in layout[(out, port.SlotId(0))]]
+    return got, want
 
 
-def test_mix_pow_raises_not_yet_ported():
-    graph = port.NodeGraph()
-    a = graph.add_node(port.Node(port.NodeType.Value(0.5)))
-    mix = graph.add_node(port.Node(port.NodeType.Mix(port.MixType.POW)))
-    graph.connect(a, mix, port.SlotId(0), port.SlotId(0))
-    with pytest.raises(port.TexProError) as err:
-        CompiledGraph(graph, "cpu").call_with_layout()
-    assert "not yet ported" in str(err.value)
+def _value_into(pkg, node_type):
+    graph = pkg.NodeGraph()
+    value = graph.add_node(pkg.Node(pkg.NodeType.Value(0.5)))
+    node = graph.add_node(pkg.Node(node_type(pkg)))
+    graph.connect(value, node, pkg.SlotId(0), pkg.SlotId(0))
+    out = graph.add_node(pkg.Node(pkg.NodeType.OutputGray("out")))
+    graph.connect(node, out, pkg.SlotId(0), pkg.SlotId(0))
+    return graph, out
+
+
+def test_levels_evaluates_as_reference():
+    got, want = _compiled_pair(
+        lambda pkg: _value_into(pkg, lambda p: p.NodeType.Levels(0.1, 0.9, 2.2, 0.0, 1.0)))
+    assert len(got) == len(want) == 1
+    assert np.array_equal(got[0].numpy().view(np.int32), np.asarray(want[0]).view(np.int32))
+
+
+def test_mix_pow_evaluates_as_reference():
+    got, want = _compiled_pair(
+        lambda pkg: _value_into(pkg, lambda p: p.NodeType.Mix(p.MixType.POW)))
+    assert len(got) == len(want) == 1
+    assert np.array_equal(got[0].numpy().view(np.int32), np.asarray(want[0]).view(np.int32))
 
 
 def test_compiled_graph_layout_keeps_aliasing():

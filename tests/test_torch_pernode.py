@@ -10,9 +10,9 @@ must give bit-identical f32 planes (int32 view) and equal u8 exports, after
 the render and after every edit.
 
 Also here: the JAX package's per-node behaviours (scheduling, commit-time
-cancel, priorities, Distance under `auto_update`), the error parity of
-unported kinds and of RGBA inputs on Gray-only nodes, and the Pattern
-constructor's refusal of a non-finite groove.
+cancel, priorities, Distance under `auto_update`), the parity of the kinds
+the first slices refused, the error parity of RGBA inputs on Gray-only
+nodes, and the Pattern constructor's refusal of a non-finite groove.
 """
 
 import json
@@ -490,13 +490,14 @@ def test_reference_per_node_behaviour(name):
 # --- error parity -------------------------------------------------------------
 
 
-def _unported_graph(pkg, kind):
-    """(graph, node to read) with one node of an unported `kind` feeding an
-    output, and a Value feeding it where it takes an input."""
+def _kind_graph(pkg, kind):
+    """(graph, node to read) with one node of `kind` (the kinds the first
+    slices of the port refused) feeding an output, and a Value feeding it
+    where it takes an input."""
     g = pkg.NodeGraph()
     value = g.add_node(pkg.Node(pkg.NodeType.Value(0.5)))
     node_type = {
-        "Levels": lambda: pkg.NodeType.Levels(0.1, 0.9, 1.0, 0.0, 1.0),
+        "Levels": lambda: pkg.NodeType.Levels(0.1, 0.9, 2.2, 0.0, 1.0),
         "GradientMap": lambda: pkg.NodeType.GradientMap([(0.0, 0.0, 0.0, 0.0, 1.0),
                                                          (1.0, 1.0, 1.0, 1.0, 1.0)]),
         "Transform": lambda: pkg.NodeType.Transform(0.1, 0.0, 90.0, 1.0, 1.0),
@@ -514,22 +515,14 @@ def _unported_graph(pkg, kind):
 
 @pytest.mark.parametrize("route", ["fused"] + ROUTES)
 @pytest.mark.parametrize("kind", ["Levels", "GradientMap", "Transform", "Image", "MixPow"])
-def test_unported_kind_fails_every_route_as_not_yet_ported(kind, route):
-    graph, out = _unported_graph(port, kind)
-    tp = _processor()
-    try:
-        lg = tp.new_live_graph()
-        with lg.write() as g:
-            g.set_node_graph(graph)
-            g.auto_update = route == "auto_update"
-            g.fuse_subgraphs = route == "fused"
-        with pytest.raises(port.TexProError) as err:
-            _render(lg, out)
-        assert err.value.kind == port.ErrorKind.NODE_PROCESSING
-        assert "not yet ported" in str(err.value)
-        assert tp.shutdown.load()  # graph-fatal and processor-fatal, like any kernel error
-    finally:
-        tp.shutdown_now()
+def test_formerly_unported_kind_matches_reference_on_every_route(sessions, kind, route):
+    """Each kind the port once refused ("not yet ported") now renders on
+    every route bit-identically to the JAX package's same route (a missing
+    Image file is the magenta placeholder on both)."""
+    graph, out = _kind_graph(ref, kind)
+    opened = sessions(graph, {}, [(ref, route, None), (port, route, None)])
+    _check_reads(opened, [int(out)], kind)
+    assert not opened[1].tp.shutdown.load()
 
 
 def _rgba_into_gray_only(pkg, kind, n=8):
