@@ -124,10 +124,36 @@ Phases, each of which raises (exit code != 0) on failure:
    exact, each Levels of gamma ≠ 1 different only where glibc `powf` and
    `ds_pow` differ for the CPU's `t`, the planes downstream of it counted.
 
+12. the batched path (`parallel.BatchedGraph`, `parallel.BatchedLiveSession`,
+   the kernels taking a whole `[B, H, W]` batch in one launch): the dense
+   blur, JFA (far and near) and warp entries on batches of 4×1024² and
+   3×97×411 against their plain versions, 0 mismatches, one launch per
+   call (the warp with batched planes and strength, a shared strength, and
+   shared planes); each timed at 16×4096² as one batched call beside 16
+   single calls back to back, with its plain version, its library call
+   (`conv2d` pair with batch 16, `grid_sample` with N = 16; none for the
+   JFA) and its bound, and there too against the plain version's output
+   (blur σ=6.0, JFA far and near, warp), 0 mismatches. Then at 16×4096²,
+   counters from 0 before each:
+   BASELINE config 5 (`graphs.bounded_chain_graph(depth=16)`, four gray
+   input batches from `numpy.random.default_rng`) through
+   `BatchedLiveSession` (render, then its `v` Value 0.96 → 0.93 → 0.96:
+   one program, checksums that change with `v`, wall and CUDA-event ms per
+   render), and PBR, the flagship and a kernel graph (height → Blur 6.0,
+   → Distance 512, Warp(37°, 5) of the Distance by the blurred height)
+   through `BatchedGraph`: per render the launches of the single-canvas
+   render, canvases 0 and 15 bit-identical to the single-canvas
+   `CompiledGraph`, peak device memory printed (under 80 GB). The kernel
+   graph over a batch mesh of two shards on cuda:0 (and over four cards
+   when visible) bit-identical to one device, one `batch` gather and no
+   other. Card vs CPU at 4×256² for the four graphs (the chain with a
+   batched `v`), f32 and u8.
+
 The third-to-last line ranks the kernels by launches × (ms − bound) over
 the 4096² sequences, the second-to-last is a JSON object describing the
-kernels (`launches` summed over the fused, mesh, per-node and template
-sequences), the last line is `{"ok": true, "device": {...}}`. Run alone, in
+kernels (`launches` summed over the fused, mesh, per-node, template and
+batched sequences; the dense entries' `batched` key holds the batched
+timings and launches), the last line is `{"ok": true, "device": {...}}`. Run alone, in
 a directory holding no `kanter_core_tpu_torch` package, it exits 1 without
 a result.
 """
@@ -265,14 +291,16 @@ def build_phase(kernels) -> None:
 
 def blur_library(x, taps):
     """The separable wrap blur as PyTorch's convolution on circularly padded
-    input (timed as a yardstick only)."""
+    input (timed as a yardstick only); a `[B, H, W]` batch is one `conv2d`
+    pair with batch B."""
     import torch
     import torch.nn.functional as F
 
     r = (len(taps) - 1) // 2
     t = torch.from_numpy(np.ascontiguousarray(taps)).to(x.device)
-    v = F.conv2d(F.pad(x[None, None], (0, 0, r, r), mode="circular"), t.view(1, 1, -1, 1))
-    return F.conv2d(F.pad(v, (r, r, 0, 0), mode="circular"), t.view(1, 1, 1, -1))[0, 0]
+    n = x.reshape(-1, 1, *x.shape[-2:])
+    v = F.conv2d(F.pad(n, (0, 0, r, r), mode="circular"), t.view(1, 1, -1, 1))
+    return F.conv2d(F.pad(v, (r, r, 0, 0), mode="circular"), t.view(1, 1, 1, -1)).reshape(x.shape)
 
 
 def main_path_sigmas() -> list:
@@ -453,11 +481,10 @@ def jfa_phase(kp_dist) -> dict:
             {"max_abs_err": 0, "timings": near_timings})
 
 
-def warp_library(planes, strength, k):
-    """The warp as PyTorch's `grid_sample` (bilinear) on a circularly padded
-    stack (timed as a yardstick only); returns a function of no arguments."""
+def warp_grid(strength, k):
+    """`(grid, pad)`: the warp's sample coordinates as `grid_sample`'s grid
+    on a stack padded circularly by `pad`, for an `[H, W]` strength map."""
     import torch
-    import torch.nn.functional as F
 
     h, w = strength.shape
     kx, ky = (float(c) for c in k)
@@ -467,13 +494,29 @@ def warp_library(planes, strength, k):
     v = torch.arange(h, device=strength.device, dtype=torch.float32)[:, None] + ms * ky
     gx = (u + pad) * (2.0 / (w + 2 * pad - 1)) - 1.0
     gy = (v + pad) * (2.0 / (h + 2 * pad - 1)) - 1.0
-    grid = torch.stack([gx, gy], dim=-1)[None]
-    stack = torch.stack(list(planes))[None]
+    return torch.stack([gx, gy], dim=-1), pad
+
+
+def warp_library(planes, strength, k):
+    """The warp as PyTorch's `grid_sample` (bilinear) on a circularly padded
+    stack (timed as a yardstick only); returns a function of no arguments.
+    `[B, H, W]` planes by a shared `[H, W]` strength map are one call with
+    N = B."""
+    import torch
+    import torch.nn.functional as F
+
+    grid, pad = warp_grid(strength, k)
+    if planes[0].dim() == 3:
+        stack = torch.stack(list(planes), dim=1)
+        grid = grid[None].expand(stack.shape[0], *grid.shape)
+    else:
+        stack, grid = torch.stack(list(planes))[None], grid[None]
 
     def run():
         padded = F.pad(stack, (pad, pad, pad, pad), mode="circular")
-        return F.grid_sample(padded, grid, mode="bilinear", padding_mode="border",
-                             align_corners=True)[0]
+        out = F.grid_sample(padded, grid, mode="bilinear", padding_mode="border",
+                            align_corners=True)
+        return out if planes[0].dim() == 3 else out[0]
 
     return run
 
@@ -534,6 +577,15 @@ def launch_counts() -> dict:
             "jfa_near": distance.JFA_NEAR_KERNEL.launches,
             "warp": warp.WARP_KERNEL.launches, "blur_block": blur.BLUR_BLOCK_KERNEL.launches,
             "warp_block": warp.WARP_BLOCK_KERNEL.launches}
+
+
+def batched_launch_counts() -> dict:
+    """The dense entries' launches over a batch of more than one canvas
+    since the last reset."""
+    blur, distance, warp = kernels()
+    return {"blur": blur.BLUR_KERNEL.batched_launches, "jfa": distance.JFA_KERNEL.batched_launches,
+            "jfa_near": distance.JFA_NEAR_KERNEL.batched_launches,
+            "warp": warp.WARP_KERNEL.batched_launches}
 
 
 def blur_launches_by_sigma() -> dict:
@@ -1079,7 +1131,7 @@ def check_mesh_run(label, single, sharded, transforms=None) -> None:
         # a ladder ends in exactly one near launch
         want_g = {"distance": many["jfa_near"], "transform": tf, "blur_gate": 0,
                   "warp_gate": 0, "resize": 0, "export": mc["reads"],
-                  "host": mc["planes_read"]}
+                  "host": mc["planes_read"], "batch": 0}
         if mc["gathers"] != want_g:
             raise AssertionError(f"mesh {label}: gathers {mc['gathers']}, want {want_g}")
 
@@ -1397,25 +1449,435 @@ def template_phase(mesh) -> dict:
     return paths
 
 
+BATCH = 16  # canvases of the batched path (BASELINE config 5)
+
+
+def batched_kernel_phase(kp_blur, kp_dist, kp_warp) -> dict:
+    """Phase 12, the kernels: each dense entry on a batch against its plain
+    version (4×1024² and 3×97×411, one launch per call, 0 mismatches), then
+    timed at 16×4096² as one batched call beside 16 single calls back to
+    back, with its plain version, its library call and its bound; there the
+    plain version's output from its timing is held against the batched
+    call's on the same inputs (blur σ=6.0, the JFA's far steps and near
+    run, the warp), 0 mismatches. Returns
+    `{"blur": {"max_abs_err", "timings"}, "jfa": ..., "jfa_near": ...,
+    "warp": ...}`; a blur timing per sigma the batched graphs launch."""
+    import torch
+
+    rng = np.random.default_rng(12)
+    out = {key: {"max_abs_err": 0.0, "timings": []} for key in ("blur", "jfa", "jfa_near", "warp")}
+
+    def batch_of(b, h, w):
+        return torch.from_numpy(rng.random((b, h, w), dtype=np.float32)).cuda()
+
+    def one_launch(kernel, before, what):
+        if kernel.launches != before + 1:
+            raise AssertionError(f"{what}: {kernel.launches - before} launches, want 1")
+
+    def same_bits(what, got, want):
+        """Raise unless `got` and `want` (tensors, or lists of them) hold the
+        same bits; logs the count."""
+        pairs = list(zip(got, want)) if isinstance(got, (list, tuple)) else [(got, want)]
+        bad = sum(mismatches(g, r) for g, r in pairs)
+        log(f"{what} vs plain: {bad} bit mismatches")
+        if bad:
+            raise AssertionError(f"{what} differs from its plain version")
+
+    for b, h, w in ((4, 1024, 1024), (3, 97, 411)):
+        for sigma in (1.2, 6.0, 12.0):
+            x = batch_of(b, h, w)
+            before = kp_blur.BLUR_KERNEL.launches
+            got = kp_blur.blur_plane_cuda(x, sigma)
+            one_launch(kp_blur.BLUR_KERNEL, before, f"batched blur {b}x{h}x{w}")
+            want = kp_blur.blur_plane_plain(x, sigma)
+            bad = mismatches(got, want)
+            err = float((got - want).abs().max().item())
+            out["blur"]["max_abs_err"] = max(out["blur"]["max_abs_err"], err)
+            log(f"batched blur {b}x{h}x{w} sigma={sigma}: 1 launch, {bad} bit mismatches")
+            if bad:
+                raise AssertionError(f"batched blur differs from plain at {b}x{h}x{w} σ={sigma}")
+        state = kp_dist.pack_seeds((batch_of(b, h, w) < 1e-2).float())
+        before = (kp_dist.JFA_KERNEL.launches, kp_dist.JFA_NEAR_KERNEL.launches)
+        got = kp_dist.jfa_propagate_cuda(state)
+        plan = kp_dist.jfa_launch_plan(h, w)
+        far = sum(1 for launch in plan if launch.entry == "step")
+        launched = (kp_dist.JFA_KERNEL.launches - before[0],
+                    kp_dist.JFA_NEAR_KERNEL.launches - before[1])
+        if launched != (far, 1):
+            raise AssertionError(f"batched JFA {b}x{h}x{w}: launches {launched}, want {(far, 1)}")
+        bad = mismatches(got, kp_dist.jfa_propagate_plain(state))
+        log(f"batched jfa {b}x{h}x{w}: {far} + 1 launches, {bad} bit mismatches")
+        if bad:
+            raise AssertionError(f"batched JFA differs from plain at {b}x{h}x{w}")
+        k = kp_warp.warp_bindings((37.0, 5.0))["k"]
+        planes = [batch_of(b, h, w) for _ in range(4)]
+        m = batch_of(b, h, w) * 1.6 - 0.3
+        m.view(-1)[::97] = float("nan")
+        for label, ps, st in (("both batched", planes, m), ("strength shared", planes, m[0]),
+                              ("planes shared", [p[0] for p in planes], m)):
+            st = st.contiguous()
+            ps = [p.contiguous() for p in ps]
+            before = kp_warp.WARP_KERNEL.launches
+            got = kp_warp.warp_planes_cuda(ps, st, k)
+            one_launch(kp_warp.WARP_KERNEL, before, f"batched warp {b}x{h}x{w} {label}")
+            want = kp_warp.warp_planes_plain(ps, st, k)
+            bad = sum(mismatches(g, r) for g, r in zip(got, want))
+            err = max(float((g - r).abs().max().item()) for g, r in zip(got, want))
+            out["warp"]["max_abs_err"] = max(out["warp"]["max_abs_err"], err)
+            log(f"batched warp {b}x{h}x{w} RGBA {label}: 1 launch, {bad} bit mismatches")
+            if bad:
+                raise AssertionError(f"batched warp differs from plain at {b}x{h}x{w} {label}")
+        torch.cuda.synchronize()
+
+    # timings at 16×4096²
+    n, b = CANVAS * CANVAS, BATCH
+    x = batch_of(b, CANVAS, CANVAS)
+    for sigma in (0.8, 1.0, 1.2, 2.0, 4.0, 6.0):
+        taps = kp_blur.gaussian_taps(round(sigma, 6))
+        ms = time_cuda(lambda: kp_blur.blur_plane_cuda(x, sigma), runs=10)
+        singles = [x[i] for i in range(b)]
+        singles_ms = time_cuda(lambda: [kp_blur.blur_plane_cuda(p, sigma) for p in singles],
+                               runs=10)
+        bound, by = blur_bound(b * n, 0, len(taps))
+        t = {"shape": f"{b}x{CANVAS}x{CANVAS}", "sigma": sigma, "taps": len(taps), "ms": ms,
+             "singles_ms": singles_ms, "bound_ms": bound, "bound_by": by,
+             "plain_ms": None, "library_ms": None}
+        if sigma == 6.0:
+            kept = {}
+            t["plain_ms"] = time_cuda(
+                lambda: kept.update(out=kp_blur.blur_plane_plain(x, sigma)), runs=3, warmup=1)
+            same_bits(f"batched blur {b}x{CANVAS}x{CANVAS} sigma={sigma}",
+                      kp_blur.blur_plane_cuda(x, sigma), kept.pop("out"))
+            t["library_ms"] = time_cuda(lambda: blur_library(x, taps), runs=5)
+        log(f"batched blur {t['shape']} sigma={sigma}: {ms:.4f} ms in one launch, {b} single "
+            f"calls {singles_ms:.4f} ms, plain {t['plain_ms']}, library {t['library_ms']}, "
+            f"bound {bound:.4f} ms ({by})")
+        out["blur"]["timings"].append(t)
+    del x
+    state = kp_dist.pack_seeds((batch_of(b, CANVAS, CANVAS) < 1e-2).float())
+    plan = kp_dist.jfa_launch_plan(CANVAS, CANVAS)
+    far = [launch for launch in plan if launch.entry == "step"]
+    near = [launch for launch in plan if launch.entry == "near"]
+    before_near = kp_dist.jfa_run_launches(state, far)
+    singles = [state[i].contiguous() for i in range(b)]
+    singles_near = [before_near[i].contiguous() for i in range(b)]
+    for key, launches, start, single_starts in (("jfa", far, state, singles),
+                                                ("jfa_near", near, before_near, singles_near)):
+        ks = [k for launch in launches for k in launch.steps]
+        ms = time_cuda(lambda: kp_dist.jfa_run_launches(start, launches), runs=10)
+        singles_ms = time_cuda(
+            lambda: [kp_dist.jfa_run_launches(s, launches) for s in single_starts], runs=5)
+
+        kept = {}
+
+        def plain(start=start, ks=ks):
+            for k in ks:
+                start = kp_dist.jfa_step_plain(start, k)
+            kept["out"] = start
+
+        plain_ms = time_cuda(plain, runs=2, warmup=1)
+        same_bits(f"batched {key} {b}x{CANVAS}x{CANVAS}",
+                  kp_dist.jfa_run_launches(start, launches), kept.pop("out"))
+        bound, by = jfa_bound(b * n, len(ks))
+        log(f"batched {key} {b}x{CANVAS}x{CANVAS} steps {ks}: {ms:.4f} ms in {len(launches)} "
+            f"launches, {b} single ladders {singles_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"none, bound {bound:.4f} ms ({by})")
+        out[key]["timings"].append({
+            "shape": f"{b}x{CANVAS}x{CANVAS}", "steps_covered": ks, "launches": len(launches),
+            "ms": ms, "singles_ms": singles_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound, "bound_by": by})
+    del state, before_near, singles, singles_near
+    k = kp_warp.warp_bindings((37.0, 5.0))["k"]
+    planes = [batch_of(b, CANVAS, CANVAS) for _ in range(4)]
+    strength = torch.from_numpy(rng.random((CANVAS, CANVAS), dtype=np.float32)).cuda()
+    ms = time_cuda(lambda: kp_warp.warp_planes_cuda(planes, strength, k), runs=10)
+    single_planes = [[p[i] for p in planes] for i in range(b)]
+    singles_ms = time_cuda(
+        lambda: [kp_warp.warp_planes_cuda(ps, strength, k) for ps in single_planes], runs=5)
+    kept = {}
+    plain_ms = time_cuda(
+        lambda: kept.update(out=kp_warp.warp_planes_plain(planes, strength, k)), runs=2,
+        warmup=1)
+    same_bits(f"batched warp {b}x{CANVAS}x{CANVAS} RGBA, strength shared",
+              kp_warp.warp_planes_cuda(planes, strength, k), kept.pop("out"))
+    library = warp_library(planes, strength, k)
+    library_ms = time_cuda(library, runs=5)
+    bound, by = bound_ms(4.0 * n + 32.0 * b * n, WARP_FLOPS_PER_PX * b * n, FP32_FLOPS)
+    log(f"batched warp {b}x{CANVAS}x{CANVAS} RGBA, strength shared: {ms:.4f} ms in one launch, "
+        f"{b} single calls {singles_ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} "
+        f"ms, bound {bound:.4f} ms ({by})")
+    out["warp"]["timings"].append({
+        "shape": f"{b}x{CANVAS}x{CANVAS}", "payload": [37.0, 5.0], "strength": "shared",
+        "ms": ms, "singles_ms": singles_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound, "bound_by": by})
+    del planes, single_planes, library
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_graph():
+    """InputGray height → Blur 6.0, → Distance 512, and Warp(37°, 5) of the
+    Distance's output by the blurred height: the one graph where the three
+    batched entries all run on batched operands. Returns (graph, input id,
+    output id)."""
+    from kanter_core_tpu_torch import Node, NodeGraph, NodeType, SlotId
+
+    graph = NodeGraph()
+    height = graph.add_node(Node(NodeType.InputGray("height")))
+    blur = graph.add_node(Node(NodeType.Blur(6.0)))
+    dist = graph.add_node(Node(NodeType.Distance(512.0)))
+    warp = graph.add_node(Node(NodeType.Warp(37.0, 5.0)))
+    out = graph.add_node(Node(NodeType.OutputGray("out")))
+    graph.connect(height, blur, SlotId(0), SlotId(0))
+    graph.connect(height, dist, SlotId(0), SlotId(0))
+    graph.connect(dist, warp, SlotId(0), SlotId(0))
+    graph.connect(blur, warp, SlotId(0), SlotId(1))
+    graph.connect(warp, out, SlotId(0), SlotId(0))
+    return graph, height, out
+
+
+def batched_graphs(n: int):
+    """Phase 12's four graphs at `n`²: `{name: (graph, input ids, value id
+    or None)}` (the chain's `v`)."""
+    from kanter_core_tpu_torch import NodeTypeKind
+    from kanter_core_tpu_torch.graphs import bounded_chain_graph, flagship_graph
+    from kanter_core_tpu_torch.models import pbr_material_graph
+
+    chain, inputs, v, _ = bounded_chain_graph(depth=16)
+    pbr = pbr_material_graph()
+    height = [x.node_id for x in pbr.nodes if x.node_type.kind == NodeTypeKind.INPUT_GRAY]
+    flag, flag_inputs, _ = flagship_graph(n)
+    kgraph, kheight, _ = kernel_graph()
+    return {"chain": (chain, inputs, v), "pbr": (pbr, height, None),
+            "flagship": (flag, flag_inputs, None), "kernels": (kgraph, [kheight], None)}
+
+
+def batch_inputs(input_ids, b: int, n: int, seed: int, device, masked: bool = False):
+    """`{input_<id>: ([b, n, n] batch,)}` from `default_rng(seed)`, made on
+    the host and moved once; `masked`: a seed mask at density 1e-2 plus
+    0.4 × noise (the kernel graph's height, so the Distance has seeds)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    args = {}
+    for node in input_ids:
+        x = rng.random((b, n, n), dtype=np.float32)
+        if masked:
+            x = ((rng.random((b, n, n)) < 1e-2) + x * np.float32(0.4)).astype(np.float32)
+        args[f"input_{int(node)}"] = (torch.from_numpy(x).to(device),)
+    return args
+
+
+def checksum(planes) -> float:
+    return float(sum(p.double().sum().item() for p in planes))
+
+
+def check_canvases(label, graph, args, result, value=None) -> None:
+    """The first and the last canvas of a batched result against the
+    single-canvas `CompiledGraph` on the card, bit for bit."""
+    from kanter_core_tpu_torch.compiler import CompiledGraph
+
+    prog = CompiledGraph(graph, device="cuda")
+    if value is not None:
+        prog.set_value(*value)
+    for i in (0, BATCH - 1):
+        single = prog(**{k: (v[0][i],) for k, v in args.items()})
+        bad = {str(key): [mismatches(p, q[i]) for p, q in zip(planes, result[key])]
+               for key, planes in single.items()}
+        log(f"batched {label} canvas {i} vs single-canvas CompiledGraph: mismatches {bad}")
+        if any(any(v) for v in bad.values()):
+            raise AssertionError(f"batched {label}: canvas {i} differs from its single render")
+        del single
+
+
+def batched_graph_phase() -> dict:
+    """Phase 12, the graphs at 16×4096²: BASELINE config 5 through
+    `BatchedLiveSession` (render, then `v` 0.96 → 0.93 → 0.96), PBR, the
+    flagship and the kernel graph through `BatchedGraph`; launches per
+    render against the single-canvas render's, canvases 0 and 15 against
+    it bit for bit, peak device memory; card = CPU at 4×256² (f32 and u8);
+    the kernel graph over a batch mesh of 2 shards on cuda:0 (and of the
+    four cards, if present) against one device. Returns `({path name:
+    (counts, blur launches by sigma)}, {path name: batched launch
+    counts})`."""
+    import torch
+    from kanter_core_tpu_torch import SlotId
+    from kanter_core_tpu_torch.compiler import CompiledGraph
+    from kanter_core_tpu_torch.parallel import (
+        MESH_COUNTERS, BatchedGraph, BatchedLiveSession, BatchShards, make_mesh,
+    )
+
+    paths, batched = {}, {}
+    graphs = batched_graphs(CANVAS)
+
+    # 1. BASELINE config 5 at spec: the chain through the session
+    chain, inputs, v = graphs["chain"]
+    session = BatchedLiveSession(chain, inputs, device="cuda")
+    args = batch_inputs(inputs, BATCH, CANVAS, 0, "cuda")
+    for node in inputs:
+        session.set_input(node, args[f"input_{int(node)}"][0])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sums = []
+    for step, value in (("render", None), ("v 0.93", 0.93), ("v 0.96", 0.96)):
+        if value is not None:
+            session.set_value(v, value)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        result = session.render()
+        end.record()
+        end.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        (key,) = result
+        sums.append(checksum(result[key]))
+        log(f"batched chain {BATCH}x{CANVAS}x{CANVAS} {step}: {wall:.3f} ms wall, "
+            f"{start.elapsed_time(end):.3f} ms CUDA events, checksum {sums[-1]!r}, "
+            f"programs {len(session._programs)}")
+    paths["batched_chain"] = (launch_counts(), blur_launches_by_sigma())
+    batched["batched_chain"] = batched_launch_counts()
+    if len(session._programs) != 1:
+        raise AssertionError(f"the value edits built {len(session._programs)} programs, want 1")
+    if sums[0] == sums[1] or sums[1] == sums[2]:
+        raise AssertionError(f"batched chain: checksums {sums} did not change with v")
+    if sums[0] != sums[2]:
+        raise AssertionError(f"batched chain: v back at 0.96 gives {sums[2]!r}, not {sums[0]!r}")
+    if not all(torch.isfinite(p).all() for p in result[key]):
+        raise AssertionError("batched chain: non-finite output")
+    log(f"batched chain peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check_canvases("chain", chain, args, result, value=(v, 0.96))
+    del session, result, args
+    gc.collect()
+
+    # 2-4. PBR, the flagship and the kernel graph through BatchedGraph
+    for name in ("pbr", "flagship", "kernels"):
+        graph, inputs, _ = graphs[name]
+        args = batch_inputs(inputs, BATCH, CANVAS, 1, "cuda", masked=name == "kernels")
+        single = CompiledGraph(graph, device="cuda")
+        reset_counts()
+        single(**{k: (a[0][0],) for k, a in args.items()})
+        torch.cuda.synchronize()
+        want = launch_counts()
+        bg = BatchedGraph(graph, set(args), device="cuda")
+        bg(**args)  # warm-up: the per-shape host tables
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        result = bg(**args)
+        end.record()
+        end.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = launch_counts()
+        paths[f"batched_{name}"] = (got, blur_launches_by_sigma())
+        batched[f"batched_{name}"] = got_batched = batched_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"batched {name} {BATCH}x{CANVAS}x{CANVAS}: {wall:.3f} ms wall, "
+            f"{start.elapsed_time(end):.3f} ms CUDA events, peak device memory {peak:.3f} GiB; "
+            f"launches {got}, the single-canvas render's {want}")
+        if got != want or not any(got[key] for key in ("blur", "jfa", "warp")):
+            raise AssertionError(f"batched {name}: launches {got}, want the single canvas's {want}")
+        # every launch takes the whole batch, except the flagship's jump
+        # flood: its Distance reads the Pattern alone and runs once, unbatched
+        want_batched = {key: got[key] for key in got_batched}
+        if name == "flagship":
+            want_batched.update(jfa=0, jfa_near=0)
+        log(f"batched {name}: launches over the batch {got_batched}")
+        if got_batched != want_batched:
+            raise AssertionError(f"batched {name}: batched launches {got_batched}, want "
+                                 f"{want_batched}")
+        if peak >= 80:
+            raise AssertionError(f"batched {name}: peak {peak:.3f} GiB")
+        for key, planes in result.items():
+            if not all(p.shape == (BATCH, CANVAS, CANVAS) and torch.isfinite(p).all()
+                       for p in planes):
+                raise AssertionError(f"batched {name} {key}: wrong shape or non-finite values")
+        check_canvases(name, graph, args, result)
+        if name == "kernels":
+            kernel_result, kernel_args = result, args
+        del single, bg, result
+        gc.collect()
+
+    # the kernel graph over a batch mesh against one device
+    meshes = [make_mesh(devices=["cuda:0"] * 2, axes=("batch",))]
+    if torch.cuda.device_count() >= 4:
+        meshes.append(make_mesh(4, axes=("batch",)))
+    graph, _, _ = graphs["kernels"]
+    ((key, (want_plane,)),) = kernel_result.items()
+    for mesh in meshes:
+        bg = BatchedGraph(graph, set(kernel_args), mesh=mesh)
+        sharded = {k: (bg.shard_batch_arg(a[0]),) for k, a in kernel_args.items()}
+        reset_counts()
+        (plane,) = bg(**sharded)[key]
+        if not isinstance(plane, BatchShards) or MESH_COUNTERS.snapshot()["gathers"]["batch"]:
+            raise AssertionError(f"batch mesh {mesh}: the output was gathered")
+        whole = plane.gather("cuda:0")
+        snap = MESH_COUNTERS.snapshot()
+        want_g = dict.fromkeys(MESH_COUNTERS.CAUSES, 0)
+        want_g["batch"] = 1
+        bad = mismatches(whole, want_plane)
+        log(f"batched kernels over {mesh}: {bad} mismatches against one device, launches "
+            f"{launch_counts()}, mesh counters {snap}")
+        if bad or snap["gathers"] != want_g or snap["exchanges"]:
+            raise AssertionError(f"batch mesh {mesh}: mismatches {bad}, counters {snap}")
+        del bg, sharded, plane, whole
+    del kernel_result, kernel_args, want_plane
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # card = CPU at 4×256², f32 and u8
+    small = batched_graphs(256)
+    for name, (graph, inputs, v) in small.items():
+        runs = {}
+        for device in ("cuda", "cpu"):
+            args = batch_inputs(inputs, 4, 256, 2, device, masked=name == "kernels")
+            if v is not None:
+                args[f"value_{int(v)}"] = np.asarray([0.96, 0.93, 0.95, 0.91], np.float32)
+            f32 = BatchedGraph(graph, set(args), device=device)(**args)
+            u8 = BatchedGraph(graph, set(args), include_u8=True, device=device)(**args)
+            runs[device] = (f32, u8)
+        (f32_card, u8_card), (f32_cpu, u8_cpu) = runs["cuda"], runs["cpu"]
+        counts = {str(key): [mismatches(p.cpu(), q) for p, q in zip(f32_card[key], f32_cpu[key])]
+                  for key in f32_cpu}
+        same_u8 = all(torch.equal(u8_card[key].cpu(), u8_cpu[key]) for key in u8_cpu)
+        log(f"batched card vs cpu {name} 4x256x256: f32 mismatches {counts}, u8 identical "
+            f"{same_u8}")
+        if not same_u8 or any(any(c) for c in counts.values()):
+            raise AssertionError(f"batched {name}: the card and the CPU disagree")
+    return paths, batched
+
+
 def gap_ranking(entries) -> list:
     """For each kernel: over the 4096² sequences, launches × (ms − bound) in
     ms, the time a perfect kernel would give back; largest first. A blur
     launch takes the timing of its own sigma, a far JFA launch the mean far
-    step, the near launch the near run."""
+    step, the near launch the near run; a launch over a batch takes the
+    batched timing (the warp's: RGBA over a shared strength map)."""
     ranking = []
     for e in entries:
         by_path = {}
         for path, launches in e["launches_by_path"].items():
             by_sigma = e.get("launches_by_sigma", {}).get(path)
+            # a launch over a batch takes the batched timing (the batched
+            # paths' blur launches are all over the batch)
+            n_batched = e.get("batched", {}).get("launches_by_path", {}).get(path, 0)
+            timings = e["batched"]["timings"] if n_batched else e["timings"]
             if by_sigma is None:
-                main = e["timings"][-1] if e["name"].startswith("kanter_jfa") else None
-                ms, bound = e["ms"], e["bound_ms"]
-                if main is not None and e["name"] == "kanter_jfa_step_i32":
-                    per = len(main["steps_covered"])
-                    ms, bound = ms / per, bound / per
-                by_path[path] = launches * (ms - bound)
+                gap = 0.0
+                for (ms, bound, steps), count in (
+                        ((e["ms"], e["bound_ms"], e["timings"][-1].get("steps_covered")),
+                         launches - n_batched),
+                        ((timings[-1]["ms"], timings[-1]["bound_ms"],
+                          timings[-1].get("steps_covered")), n_batched)):
+                    if e["name"] == "kanter_jfa_step_i32":  # a far launch: the mean step
+                        ms, bound = ms / len(steps), bound / len(steps)
+                    gap += count * (ms - bound)
+                by_path[path] = gap
                 continue
-            timed = {t["sigma"]: t for t in e["timings"]}
+            timed = {t["sigma"]: t for t in timings}
             by_path[path] = sum(
                 count * (timed[sigma]["ms"] - timed[sigma]["bound_ms"])
                 for sigma, count in by_sigma.items()
@@ -1581,12 +2043,21 @@ def main() -> int:
     template_paths = template_phase(mesh)
     phase_done("templates")
 
+    # 12. the batched path: each dense entry on a batch against its plain
+    # version and timed at 16×4096², then BASELINE config 5 through
+    # BatchedLiveSession, PBR, the flagship and the kernel graph through
+    # BatchedGraph at 16×4096², a batch mesh, card vs CPU at 4×256²
+    batched = batched_kernel_phase(kp_blur, kp_dist, kp_warp)
+    batched_paths, batched_counts = batched_graph_phase()
+    phase_done("batched")
+
     paths = {"pbr": (pbr_path, pbr_sigmas), "flagship": (flag_path, flag_sigmas),
              "mesh_pbr": (mesh_pbr_path, mesh_pbr_sigmas),
              "mesh_flagship": (mesh_flag_path, mesh_flag_sigmas),
              "pernode_pbr": (pn_pbr_path, pn_pbr_sigmas),
              "pernode_flagship": (pn_flag_path, pn_flag_sigmas),
-             "pernode_mesh_flagship": (mesh_pn_path, mesh_pn_sigmas), **template_paths}
+             "pernode_mesh_flagship": (mesh_pn_path, mesh_pn_sigmas), **template_paths,
+             **batched_paths}
 
     def by_path(key):
         return {name: counts[key] for name, (counts, _) in paths.items()}
@@ -1594,7 +2065,7 @@ def main() -> int:
     def by_sigma(key):
         return {name: sigmas[key] for name, (_, sigmas) in paths.items()}
 
-    def entry(name, source, replaces, phase, main, key):
+    def entry(name, source, replaces, phase, main, key, batched_key=None):
         e = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path(key).values()), "launches_by_path": by_path(key),
@@ -1605,22 +2076,26 @@ def main() -> int:
         }
         if key in ("blur", "blur_block"):
             e["launches_by_sigma"] = by_sigma(key)
+        if batched_key is not None:
+            # the launches over a whole batch (one launch for all canvases)
+            e["batched"] = dict(batched[batched_key], launches_by_path={
+                path: counts[key] for path, counts in batched_counts.items()})
         return e
 
     entries = [
         entry("kanter_blur_wrap_f32", "kanter_core_tpu_torch/csrc/blur.cu",
               "kanter_core_tpu/ops/pallas_blur.py:77",
               blur,
-              next(t for t in blur["timings"] if t["sigma"] == 6.0), "blur"),
+              next(t for t in blur["timings"] if t["sigma"] == 6.0), "blur", "blur"),
         entry("kanter_jfa_step_i32", "kanter_core_tpu_torch/csrc/jfa.cu",
               "kanter_core_tpu/ops/pallas_distance.py:90",
-              jfa, jfa["timings"][-1], "jfa"),
+              jfa, jfa["timings"][-1], "jfa", "jfa"),
         entry("kanter_jfa_near_i32", "kanter_core_tpu_torch/csrc/jfa.cu",
               "kanter_core_tpu/ops/pallas_distance.py:90",
-              jfa_near, jfa_near["timings"][-1], "jfa_near"),
+              jfa_near, jfa_near["timings"][-1], "jfa_near", "jfa_near"),
         entry("kanter_warp_bilinear_f32", "kanter_core_tpu_torch/csrc/warp.cu",
               "kanter_core_tpu/ops/pallas_warp.py:147",
-              warp, warp["timings"][0], "warp"),
+              warp, warp["timings"][0], "warp", "warp"),
         entry("kanter_blur_block_f32", "kanter_core_tpu_torch/csrc/blur.cu",
               "kanter_core_tpu/ops/pallas_blur.py:419",
               blur_block,

@@ -18,8 +18,14 @@ reference's pow (`ops.exact_math`: glibc `powf` on the CPU, `ds_pow` on a
 card), nested Graph nodes, and Image and Write through the port's own PNG
 codec (`ops.image_io`). `TextureProcessor(mesh=...)` holds the planes
 row-sharded over a device mesh (`parallel.make_mesh`), with the Blur and
-Warp block kernels run per shard after a ring halo exchange. The tiled,
-bucketed and bf16 routes are not ported.
+Warp block kernels run per shard after a ring halo exchange.
+
+The compiled-program API (`compile_graph`, `CompiledGraph` with targets and
+u8 export) and the batched path (`parallel.BatchedGraph`,
+`parallel.BatchedLiveSession`, batch-sharded over a `"batch"` mesh) run a
+graph over `[B, H, W]` batches of canvases, the Blur, Distance and Warp
+kernels taking a whole batch in one launch. Autodiff, checkpoints, the CLI,
+and the tiled, bucketed and bf16 routes are not ported.
 """
 
 from .edge import Edge
@@ -47,7 +53,7 @@ from .priority import Priority, PriorityPropagator
 from .slot_data import ChannelPixel, SlotData
 from .slot_image import SlotImage
 from . import compiler, convert, graphs, models, native, parallel, profiling
-from .compiler import CompiledGraph
+from .compiler import CompiledGraph, compile_graph
 from .texture_processor import TextureProcessor
 from .transient_buffer import AtomicUsize, PlaneBuffer, PlaneBufferQueue, Tier
 
@@ -88,6 +94,7 @@ __all__ = [
     "TexProError",
     "TextureProcessor",
     "Tier",
+    "compile_graph",
     "compiler",
     "convert",
     "graphs",

@@ -17,6 +17,10 @@ import threading
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
+# The most canvases one batched launch takes: a grid's z extent, the
+# `kMaxGridZ` of csrc/{blur,jfa,warp}.cu, whose entries refuse a larger batch.
+MAX_BATCH = 65535
+
 _locks: dict = {}  # library path → its build lock (distinct libraries build in parallel)
 _locks_guard = threading.Lock()
 
@@ -112,7 +116,8 @@ class CudaKernel:
     loaded through ctypes, and the count of its launches (`launches`: the
     wrapper calls `count_launch` once per launch of the kernel, and
     nowhere else; `launches_by_key` splits the count by the key the wrapper
-    names, a blur's sigma or a jump-flood step)."""
+    names, a blur's sigma or a jump-flood step; `batched_launches` counts
+    the launches over a batch of more than one canvas)."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
         self.name = name
@@ -123,6 +128,7 @@ class CudaKernel:
         self.argtypes = argtypes
         self.launches = 0
         self.launches_by_key: dict = {}
+        self.batched_launches = 0
         self.path = None  # the built library; its compiler output is path + ".log"
         self._fn = None
         self._lock = threading.Lock()
@@ -141,9 +147,11 @@ class CudaKernel:
                 self._fn = fn
             return self._fn
 
-    def count_launch(self, key=None) -> None:
+    def count_launch(self, key=None, batch: int = 1) -> None:
         with self._lock:
             self.launches += 1
+            if batch > 1:
+                self.batched_launches += 1
             if key is not None:
                 self.launches_by_key[key] = self.launches_by_key.get(key, 0) + 1
 
@@ -151,3 +159,4 @@ class CudaKernel:
         with self._lock:
             self.launches = 0
             self.launches_by_key = {}
+            self.batched_launches = 0

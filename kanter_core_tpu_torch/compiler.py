@@ -40,15 +40,34 @@ Each node's rules (defaults, aliases, type checks, where constant and
 procedural planes are made) are the op modules', which the per-node route
 (`ops.process_node`) calls too.
 
+Every op takes planes with a leading batch axis as well (`[B, H, W]`),
+with `jax.vmap`'s semantics: a batched value is computed canvas by canvas,
+bit for bit as on its own, and an unbatched one (a procedural source, a 1×1
+Value, a plane made from them) is computed once and broadcast where it meets
+a batched one. So the same evaluator serves the batched path
+(`parallel.BatchedGraph`, `parallel.BatchedLiveSession`); the Blur, Distance
+and Warp kernels take a whole batch in one launch.
+
+The standalone API is the JAX package's: `CompiledGraph(graph, targets,
+include_u8)` called with argument overrides returns the targets' planes,
+`compile_graph` caches programs by fingerprint. A call with targets drops
+every node's planes after their last consumer (XLA's liveness does this for
+the JAX package), so a batched call at full width holds only the live
+planes; the engine's `call_with_layout` keeps every plane, as it reports
+them all.
+
 Not carried over: `_const_guard` and the `optimization_barrier` shims, which
 keep XLA's constant folder away from constant planes — eager torch does not
-fold.
+fold; `pallas_ok`, as the kernels always run on the card; the bf16 pipeline
+(`dtype="bfloat16"` raises "not yet ported").
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -119,7 +138,7 @@ class ImgVal:
 
     @property
     def size(self) -> Size:
-        h, w = self.planes[0].shape
+        h, w = self.planes[0].shape[-2:]
         return Size(w, h)
 
 
@@ -152,8 +171,10 @@ class GraphCompiler:
         self.preset = dict(preset or {})
 
     def _eval_graph(self, graph: NodeGraph, args: dict, prefix: str = "",
-                    outer_inputs: Optional[dict] = None) -> dict:
-        """Returns {(node_id, slot_id): ImgVal} for every node in `graph`.
+                    outer_inputs: Optional[dict] = None, keep=None) -> dict:
+        """Returns {(node_id, slot_id): ImgVal} for every node in `graph`,
+        or, with `keep` (a set of node ids), for those nodes only: every
+        other node's values are dropped once its last consumer has run.
 
         `prefix` namespaces the argument keys of an inlined nested graph;
         `outer_inputs` maps its inner Input node ids to the outer ImgVals
@@ -161,6 +182,10 @@ class GraphCompiler:
         values: dict = {}
         ordered_outer = [outer_inputs[k] for k in sorted(outer_inputs)] if outer_inputs else []
         preset_nodes = {nid for nid, _ in self.preset} if prefix == "" else set()
+        consumers: dict = {}  # node id → edges still to read its values
+        if keep is not None:
+            for e in graph.edges:
+                consumers[e.output_id] = consumers.get(e.output_id, 0) + 1
 
         for node_id in _topo_order(graph):
             if node_id in preset_nodes:
@@ -201,13 +226,22 @@ class GraphCompiler:
             # matching the edge's producer key, like `assign_slot_ids`
             by_slot = {}
             for edge in edges_sorted:
-                for sd in inputs:
-                    if sd.node_id == edge.output_id and sd.slot_id == edge.output_slot:
-                        by_slot[edge.input_slot] = sd.img
-                        break
+                by_slot[edge.input_slot] = next(
+                    sd.img for sd in inputs
+                    if sd.node_id == edge.output_id and sd.slot_id == edge.output_slot
+                )
+            del inputs  # the resized copies live as long as `by_slot`
 
             for slot_id, img in self._emit(node, by_slot, args, prefix, ordered_outer):
                 values[(node_id, slot_id)] = img
+            del by_slot
+            if keep is not None:
+                for e in edges_ins:
+                    consumers[e.output_id] -= 1
+                for done in {e.output_id for e in edges_ins} | {node_id}:
+                    if consumers.get(done, 0) == 0 and done not in keep:
+                        for key in [k for k in values if k[0] == done]:
+                            del values[key]
         return values
 
     def _emit(self, node, by_slot: dict, args, prefix: str, ordered_outer: list):
@@ -232,6 +266,9 @@ class GraphCompiler:
             return one([value_plane(arg("value"), self.device)])
 
         if kind == K.IMAGE:
+            bound = args.get(f"{prefix}image_{nid}")  # the standalone API's binding
+            if bound is not None:
+                return one(list(bound))
             return one(image_node_planes(node.node_type.payload, place))
 
         if kind == K.INPUT_RGBA:
@@ -338,30 +375,133 @@ class GraphCompiler:
         raise TexProError(ErrorKind.INVALID_NODE_TYPE, f"cannot evaluate {node.node_type!r}")
 
 
+def resolve_dtype(dtype) -> torch.dtype:
+    """The pipeline's storage dtype: float32, the bit-exact default. The
+    JAX package's bf16 mode (`dtype="bfloat16"`) is not yet ported."""
+    if dtype in (None, "float32", torch.float32, np.float32):
+        return torch.float32
+    raise TexProError(ErrorKind.NODE_PROCESSING, f"dtype={dtype!r} is not yet ported")
+
+
+def _resolve_device(device) -> torch.device:
+    """`device` (the card when None) as the processor resolves it: a CUDA
+    device must exist, there is no fallback to the CPU."""
+    from .texture_processor import resolve_device
+
+    return resolve_device("cuda" if device is None else device)
+
+
+def default_targets(node_graph: NodeGraph) -> list:
+    """The Output nodes' slot 0, else every terminal node's slot 0 except
+    a Write's."""
+    targets = [(nid, SlotId(0)) for nid in node_graph.output_ids()]
+    if not targets:
+        with_children = {e.output_id for e in node_graph.edges}
+        targets = [
+            (n.node_id, SlotId(0))
+            for n in node_graph.nodes
+            if n.node_id not in with_children and n.node_type.kind != NodeTypeKind.WRITE
+        ]
+    return targets
+
+
+def planes_on(planes, device) -> tuple:
+    """A plane tuple (numpy arrays or tensors) as f32 tensors on `device`;
+    tensors already there pass as they are."""
+    return tuple(
+        torch.as_tensor(np.asarray(p, np.float32) if not isinstance(p, torch.Tensor) else p)
+        .to(device=device, dtype=torch.float32)
+        for p in planes
+    )
+
+
 class CompiledGraph:
     """A cached, reusable evaluator for a node graph on one device, or
-    row-sharded over a `mesh`.
+    row-sharded over a `mesh`: the JAX package's `CompiledGraph`.
 
+    `targets` selects the `(node_id, slot_id)` outputs a call returns
+    (default: the Output nodes, else every terminal node's slot 0 except a
+    Write's); `include_u8` returns each as its `[..., H, W, 4]` u8 export
+    instead of its planes. The arguments are `_bindings` (Value constants and
+    the other nodes' argument fields, Image planes decoded at construction)
+    updated by `bind_input`, `bind_input_rgba`, `bind_embed`, `set_value`
+    and each call's overrides.
+
+    The engine builds it with `emit_all=True` and a `preset`: then
     `call_with_layout` evaluates every node not in `preset` and returns the
-    unique output planes plus the layout that maps each output slot to them.
+    unique output planes plus the layout that maps each output slot to
+    them, and Image nodes decode their files on every evaluation.
+
+    `device` is the card (`"cuda"`) unless given; `dtype` other than float32
+    raises (the bf16 pipeline is not yet ported).
     """
 
-    def __init__(self, node_graph: NodeGraph, device, preset=None, mesh=None):
+    def __init__(self, node_graph: NodeGraph, targets: Optional[list] = None,
+                 include_u8: bool = False, preset=None, emit_all: bool = False, mesh=None,
+                 dtype=None, device=None):
+        self.dtype = resolve_dtype(dtype)
         self.node_graph = node_graph
         self.mesh = mesh
         self.preset = dict(preset or {})
+        self.emit_all = emit_all
+        if emit_all:
+            targets = []
+        elif targets is None:
+            targets = default_targets(node_graph)
+        self.targets = [(NodeId(n), SlotId(s)) for n, s in targets]
+        self.include_u8 = include_u8
+        if mesh is None:
+            device = _resolve_device(device)
         self._compiler = GraphCompiler(node_graph, device, preset=self.preset, mesh=mesh)
         self.device = self._compiler.device
         self._bindings = collect_value_bindings(node_graph)
+        if not emit_all:
+            preset_ids = {nid for nid, _ in self.preset}
+            self._bindings.update(collect_image_bindings(
+                node_graph, [n.node_id for n in node_graph.nodes if n.node_id not in preset_ids],
+                device=self.device))
+
+    def _placed(self, given: dict) -> dict:
+        """`given` with its plane tuples moved to the device (and placed
+        over the mesh, if any)."""
+        args = {}
+        for key, value in given.items():
+            if isinstance(value, (tuple, list)) and all(
+                    isinstance(p, (np.ndarray, torch.Tensor)) for p in value):
+                value = planes_on(value, self.device)
+                if self.mesh is not None:
+                    value = tuple(self._compiler.place.place(p) for p in value)
+            args[key] = value
+        return args
+
+    def _evaluate(self, args: dict) -> dict:
+        """`{target: ImgVal}`: the targets' values, every other node's
+        planes dropped after their last consumer."""
+        keep = {nid for nid, _ in self.targets}
+        values = self._compiler._eval_graph(self.node_graph, args, keep=keep)
+        return {key: values[key] for key in self.targets}
+
+    def _raw_fn(self, args: dict) -> dict:
+        """The program as a plain function of a whole argument dict (the JAX
+        package's un-jitted `_raw_fn`, which it vmaps): the targets'
+        outputs, as `__call__` gives them."""
+        out = {}
+        for key, img in self._evaluate(self._placed(args)).items():
+            out[key] = _u8_export(img) if self.include_u8 else tuple(img.planes)
+        return out
+
+    def __call__(self, **overrides) -> dict:
+        """`{(node_id, slot_id): planes}` for the targets: a tuple of plane
+        tensors, or with `include_u8` the u8 export."""
+        return self._raw_fn({**self._bindings, **overrides})
 
     def call_with_layout(self, **overrides):
         """Returns `(unique_planes, layout)`: `layout` maps
         `(node_id, slot_id) → (unique_plane_index, ...)`. Plane aliasing
         across outputs is kept by deduplicating identical tensors (every
         value stays referenced in `values` meanwhile, so `id` is unique)."""
-        args = dict(self._bindings)
-        args.update(overrides)
-        values = self._compiler._eval_graph(self.node_graph, args)
+        values = self._compiler._eval_graph(self.node_graph,
+                                            self._placed({**self._bindings, **overrides}))
         preset_node_ids = {nid for nid, _ in self.preset}
         unique: dict = {}  # id(tensor) → (index, tensor)
         layout: dict = {}
@@ -377,6 +517,43 @@ class CompiledGraph:
             layout[key] = tuple(idxs)
         ordered = sorted(unique.values(), key=lambda iv: iv[0])
         return tuple(plane for _, plane in ordered), layout
+
+    def bind_embed(self, embedded_slot_data_id, planes) -> None:
+        self._bindings[f"embed_{int(embedded_slot_data_id)}"] = planes_on(planes, self.device)
+
+    def bind_input(self, input_node_id, planes, prefix: str = "") -> None:
+        self._bindings[f"{prefix}input_{int(input_node_id)}"] = planes_on(planes, self.device)
+
+    def bind_input_rgba(self, planes, prefix: str = "") -> None:
+        """Bind the graph's FIRST outer input (InputRgba semantics — the
+        reference indexes `input_slot_datas[0]`, `input_rgba.rs:7-13`)."""
+        self._bindings[f"{prefix}input_rgba_first"] = planes_on(planes, self.device)
+
+    def set_value(self, node_id, value: float, prefix: str = "") -> None:
+        """Re-bind a Value node without rebuilding. Raises on a non-Value
+        node id — a silently unused binding would make edits no-ops."""
+        key = f"{prefix}value_{int(node_id)}"
+        if key not in self._bindings:
+            raise TexProError(
+                ErrorKind.INVALID_NODE_TYPE,
+                f"{key} is not a Value binding of this program",
+            )
+        self._bindings[key] = np.float32(value)
+
+
+def _u8_export(img: ImgVal):
+    """An image's u8 export, `[..., H, W, 4]`: RGBA stacked on the last
+    axis, gray as `v, v, v, 255` (planes of one batch broadcast together;
+    a row-sharded plane is gathered, an `export` gather)."""
+    from .ops.common import f32_to_u8
+    from .parallel.sharded import ShardedPlane
+
+    planes = [p.gather(p.mesh.devices[0], "export") if isinstance(p, ShardedPlane) else p
+              for p in img.planes]
+    if len(planes) == 4:
+        return torch.stack(torch.broadcast_tensors(*[f32_to_u8(p) for p in planes]), dim=-1)
+    v = f32_to_u8(planes[0])
+    return torch.stack([v, v, v, torch.full_like(v, 255)], dim=-1)
 
 
 def _normalize_values(graph_json):
@@ -486,3 +663,68 @@ def collect_value_bindings(node_graph: NodeGraph, prefix: str = "") -> dict:
         elif kind == K.GRAPH:
             bindings.update(collect_value_bindings(payload, f"{prefix}g{nid}_"))
     return bindings
+
+
+def collect_image_bindings(node_graph: NodeGraph, node_ids=None, prefix: str = "",
+                           dtype=None, device=None) -> dict:
+    """Freshly decoded planes for Image nodes (optionally restricted to
+    `node_ids` at the top level), as `image_<id>` arguments on `device`
+    (the card unless given): a file that cannot be read gives the 1×1
+    magenta placeholder, as the node does."""
+    from .ops.image_io import image_planes
+
+    resolve_dtype(dtype)
+    device = _resolve_device(device)
+    bindings = {}
+    for node in node_graph.nodes:
+        kind = node.node_type.kind
+        if kind == NodeTypeKind.IMAGE:
+            if prefix == "" and node_ids is not None and node.node_id not in node_ids:
+                continue
+            bindings[f"{prefix}image_{int(node.node_id)}"] = planes_on(
+                image_planes(node.node_type.payload), device)
+        elif kind == NodeTypeKind.GRAPH:
+            bindings.update(collect_image_bindings(
+                node.node_type.payload, None, f"{prefix}g{int(node.node_id)}_", device=device))
+    return bindings
+
+
+_PROGRAM_CACHE: OrderedDict = OrderedDict()
+_PROGRAM_CACHE_CAP = 128  # LRU bound: programs pin their decoded Image planes
+
+
+def compile_graph(node_graph: NodeGraph, targets: Optional[list] = None,
+                  include_u8: bool = False, cache: bool = True, dtype=None,
+                  device=None) -> CompiledGraph:
+    """A `CompiledGraph` for `node_graph`, from an LRU cache of programs
+    keyed by the graph's fingerprint, the targets and `include_u8` (and the
+    device). `targets=None` (the default outputs) and `[]` (a program that
+    computes nothing) are distinct keys. A hit returns a shallow handle that
+    shares the program but owns its bindings, refreshed from this graph's
+    Value constants, so an edit through one handle never reaches another."""
+    dtype = resolve_dtype(dtype)
+    device = _resolve_device(device)
+    key = None
+    if cache:
+        key = (
+            graph_fingerprint(
+                node_graph,
+                extra="default" if targets is None else repr(sorted(
+                    (int(n), int(s)) for n, s in targets)),
+            ),
+            include_u8,
+            str(device),
+        )
+        hit = _PROGRAM_CACHE.get(key)
+        if hit is not None:
+            _PROGRAM_CACHE.move_to_end(key)
+            handle = copy.copy(hit)
+            handle._bindings = dict(hit._bindings)
+            handle._bindings.update(collect_value_bindings(node_graph))
+            return handle
+    program = CompiledGraph(node_graph, targets, include_u8, dtype=dtype, device=device)
+    if cache:
+        _PROGRAM_CACHE[key] = program
+        while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_CAP:
+            _PROGRAM_CACHE.popitem(last=False)
+    return program

@@ -29,7 +29,9 @@ def node_graph_from_reference(json_str: str) -> NodeGraph:
 
 
 def planes_from_numpy(arrays, device) -> list[torch.Tensor]:
-    """`[H, W]` numpy planes as contiguous f32 tensors on `device`."""
+    """`[H, W]` numpy planes, or `[B, H, W]` stacks of them (a batch of
+    canvases for `parallel.BatchedGraph`), as contiguous f32 tensors on
+    `device`."""
     return [
         torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
         for a in arrays

@@ -59,6 +59,12 @@
 //   times the folds. At 218 instructions per cell and step the run keeps
 //   every instruction slot of the card busy: it is bound by the fold itself.
 //
+// A batch. Both entries take B states at their own batch strides for the
+// input and the output (64-bit offsets) and carry the canvas in blockIdx.z,
+// B <= 65535: one launch per entry of the ladder whatever B is, where the
+// batching rule of `_jfa_ladder` (pallas_distance.py:297-304) maps the rank-2
+// ladder over the batch. Every canvas folds exactly as a single state does.
+//
 // `kanter_jfa_step_i32` runs one far step and picks the lattice or the
 // one-pixel form by shape (`jfa_step_form` in ops/distance.py says which);
 // `kanter_jfa_near_i32` runs a fused run of near steps. The host-side plan
@@ -90,6 +96,16 @@ constexpr int kLatR = KANTER_JFA_LATTICE_ROWS;
 constexpr int kLatC = KANTER_JFA_LATTICE_COLS;
 constexpr int kMaxNearSteps = 8;
 constexpr int kMaxSmem = 232448;
+constexpr int kMaxGridZ = 65535;  // canvases per launch
+
+// this block's canvas of a batch, `stride` elements apart; one plane (not
+// BATCHED) keeps the pointer as it is, so its instance is the unbatched code
+// (on an H100 SXM the batched instance takes 2.8% longer on one 4096^2
+// state: scripts/batch_instance_ab.py)
+template <bool BATCHED, class T>
+__device__ __forceinline__ T* canvas(T* base, long long stride) {
+    return BATCHED ? base + (long long)blockIdx.z * stride : base;
+}
 
 // i wrapped into [0, n), any i (a remainder: staging and set-up only)
 __device__ __forceinline__ int wrap_any(int i, int n) {
@@ -178,10 +194,13 @@ __device__ __forceinline__ void fold(const M& m, const typename M::Pixel& p, int
 }
 
 // One far step, one pixel per thread: any k, any shape.
-template <class M>
+template <class M, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
 jfa_step(const int* __restrict__ in, int* __restrict__ out, const M metric, const int ky,
-         const int kx, const int h, const int w) {
+         const int kx, const int h, const int w, const long long in_stride,
+         const long long out_stride) {
+    in = canvas<BATCHED>(in, in_stride);
+    out = canvas<BATCHED>(out, out_stride);
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     if (x >= w) return;
     // source columns of ox = -k, 0, +k: (x - ox) mod W
@@ -219,11 +238,14 @@ jfa_step(const int* __restrict__ in, int* __restrict__ out, const M metric, cons
 // one lattice of stride (ky, kx). ly = h / ky and lx = w / kx are the
 // lattice's extents (at least 2), tiles_i x tiles_j its patches, inv_ky and
 // inv_kx the steps' reciprocals.
-template <class M>
+template <class M, bool BATCHED>
 __global__ void __launch_bounds__(kThreads, KANTER_JFA_LATTICE_BLOCKS)
 jfa_lattice(const int* __restrict__ in, int* __restrict__ out, const M metric, const int ky,
             const int kx, const unsigned inv_ky, const unsigned inv_kx, const int ly,
-            const int lx, const int tiles_i, const int tiles_j, const int w) {
+            const int lx, const int tiles_i, const int tiles_j, const int w,
+            const long long in_stride, const long long out_stride) {
+    in = canvas<BATCHED>(in, in_stride);
+    out = canvas<BATCHED>(out, out_stride);
     const int u = blockIdx.x * blockDim.x + threadIdx.x;  // (patch column, x residue)
     const int s = blockIdx.y * blockDim.y + threadIdx.y;  // (patch row, y residue)
     const int pj = fast_div(u, inv_kx);
@@ -280,12 +302,14 @@ struct NearSteps {
 };
 
 // The run of near steps on one th x tw tile and its halo (the steps' sum).
-template <class M>
+template <class M, bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
 jfa_near(const int* __restrict__ in, int* __restrict__ out, const M metric,
          const NearSteps steps, const int halo, const int h, const int w, const int th,
-         const int tw) {
+         const int tw, const long long in_stride, const long long out_stride) {
     extern __shared__ int near_smem[];
+    in = canvas<BATCHED>(in, in_stride);
+    out = canvas<BATCHED>(out, out_stride);
     const int rh = th + 2 * halo;
     const int rw = tw + 2 * halo;
     int* src = near_smem;
@@ -349,8 +373,9 @@ bool fits_f32(int h, int w) {
     return hy * hy + hx * hx <= (1LL << 24);
 }
 
-template <class M>
-int launch_step(const int* in, int* out, int k, int h, int w, cudaStream_t stream) {
+template <class M, bool BATCHED>
+int launch_step(const int* in, int* out, int k, int h, int w, int batch, long long in_stride,
+                long long out_stride, cudaStream_t stream) {
     // the step along each axis, reduced first: k may exceed H or W on a
     // non-square canvas (k and the extents are positive, so % is a mod)
     const int ky = k % h;
@@ -363,45 +388,62 @@ int launch_step(const int* in, int* out, int k, int h, int w, cudaStream_t strea
         const long long gx = ((long long)kx * tiles_j + block.x - 1) / block.x;
         const long long gy = ((long long)ky * tiles_i + block.y - 1) / block.y;
         if (gy <= 65535) {
-            jfa_lattice<M><<<dim3((unsigned)gx, (unsigned)gy), block, 0, stream>>>(
+            jfa_lattice<M, BATCHED><<<dim3((unsigned)gx, (unsigned)gy, batch), block, 0, stream>>>(
                 in, out, metric, ky, kx, reciprocal(ky), reciprocal(kx), ly, lx, tiles_i,
-                tiles_j, w);
+                tiles_j, w, in_stride, out_stride);
             return (int)cudaGetLastError();
         }
     }
-    const dim3 grid((w + kThreads - 1) / kThreads, h < 65535 ? h : 65535);
-    jfa_step<M><<<grid, kThreads, 0, stream>>>(in, out, metric, ky, kx, h, w);
+    const dim3 grid((w + kThreads - 1) / kThreads, h < 65535 ? h : 65535, batch);
+    jfa_step<M, BATCHED><<<grid, kThreads, 0, stream>>>(in, out, metric, ky, kx, h, w, in_stride,
+                                                        out_stride);
     return (int)cudaGetLastError();
 }
 
-template <class M>
+template <class M, bool BATCHED>
 int launch_near(const int* in, int* out, const NearSteps& steps, int halo, int h, int w,
-                int th, int tw, size_t smem, cudaStream_t stream) {
-    auto kernel = jfa_near<M>;
+                int th, int tw, size_t smem, int batch, long long in_stride,
+                long long out_stride, cudaStream_t stream) {
+    auto kernel = jfa_near<M, BATCHED>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            kMaxSmem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((w + tw - 1) / tw, (h + th - 1) / th);
+    const dim3 grid((w + tw - 1) / tw, (h + th - 1) / th, batch);
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    kernel<<<grid, kThreads, smem, stream>>>(in, out, M(h, w), steps, halo, h, w, th, tw);
+    kernel<<<grid, kThreads, smem, stream>>>(in, out, M(h, w), steps, halo, h, w, th, tw,
+                                             in_stride, out_stride);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// one far step k >= 1 from `in` to `out`
-extern "C" int kanter_jfa_step_i32(const int* in, int* out, int k, int h, int w,
+// one far step k >= 1 from `in` to `out`, for `batch` canvases: canvas b at
+// in + b * in_stride and out + b * out_stride (elements)
+extern "C" int kanter_jfa_step_i32(const int* in, int* out, int k, int h, int w, int batch,
+                                   long long in_stride, long long out_stride,
                                    cudaStream_t stream) {
-    if (k < 1 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
-    return fits_f32(h, w) ? launch_step<MetricF32>(in, out, k, h, w, stream)
-                          : launch_step<MetricI32>(in, out, k, h, w, stream);
+    if (k < 1 || h < 1 || w < 1 || batch < 1 || batch > kMaxGridZ) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (batch > 1) {
+        return fits_f32(h, w)
+                   ? launch_step<MetricF32, true>(in, out, k, h, w, batch, in_stride, out_stride,
+                                                  stream)
+                   : launch_step<MetricI32, true>(in, out, k, h, w, batch, in_stride, out_stride,
+                                                  stream);
+    }
+    return fits_f32(h, w) ? launch_step<MetricF32, false>(in, out, k, h, w, 1, 0, 0, stream)
+                          : launch_step<MetricI32, false>(in, out, k, h, w, 1, 0, 0, stream);
 }
 
 // the n steps `steps_host` (host memory, each >= 1) from `in` to `out` in one
-// launch, on tiles of th x tw pixels (tw >= 2)
+// launch, on tiles of th x tw pixels (tw >= 2), for `batch` canvases as above
 extern "C" int kanter_jfa_near_i32(const int* in, int* out, const int* steps_host, int n,
-                                   int h, int w, int th, int tw, cudaStream_t stream) {
-    if (n < 1 || n > kMaxNearSteps || h < 1 || w < 1 || th < 1 || tw < 2) {
+                                   int h, int w, int th, int tw, int batch,
+                                   long long in_stride, long long out_stride,
+                                   cudaStream_t stream) {
+    if (n < 1 || n > kMaxNearSteps || h < 1 || w < 1 || th < 1 || tw < 2 || batch < 1 ||
+        batch > kMaxGridZ) {
         return (int)cudaErrorInvalidValue;
     }
     NearSteps steps = {};
@@ -417,7 +459,15 @@ extern "C" int kanter_jfa_near_i32(const int* in, int* out, const int* steps_hos
     const size_t rh = th + 2 * halo, rw = tw + 2 * halo;
     const size_t smem = (2 * rh * rw + rh + rw) * sizeof(int);
     if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-    return fits_f32(h, w) ? launch_near<MetricF32>(in, out, steps, halo, h, w, th, tw, smem, stream)
-                          : launch_near<MetricI32>(in, out, steps, halo, h, w, th, tw, smem,
-                                                   stream);
+    if (batch > 1) {
+        return fits_f32(h, w)
+                   ? launch_near<MetricF32, true>(in, out, steps, halo, h, w, th, tw, smem, batch,
+                                                  in_stride, out_stride, stream)
+                   : launch_near<MetricI32, true>(in, out, steps, halo, h, w, th, tw, smem, batch,
+                                                  in_stride, out_stride, stream);
+    }
+    return fits_f32(h, w) ? launch_near<MetricF32, false>(in, out, steps, halo, h, w, th, tw,
+                                                          smem, 1, 0, 0, stream)
+                          : launch_near<MetricI32, false>(in, out, steps, halo, h, w, th, tw,
+                                                          smem, 1, 0, 0, stream);
 }

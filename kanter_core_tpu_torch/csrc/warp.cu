@@ -28,6 +28,15 @@
 // `fits_kernel` gates existed only because XLA:TPU gathers slowly; a direct
 // gather needs none of them and serves unbounded intensity as well.
 //
+// A batch. The dense entry takes B canvases in one launch, the canvas in
+// blockIdx.z (B <= 65535), every operand at its own batch stride with 64-bit
+// offsets: a stride of 0 shares one plane or one strength map among all
+// canvases, as vmap broadcasts an unbatched operand (the batched flagship
+// warps batched planes by an unbatched Noise strength). Every canvas is
+// warped exactly as a single one is. This replaces the batching rule of
+// `_warp_pallas_wrapped` (pallas_warp.py:468-479), which maps the rank-2 TPU
+// kernel over a batch whose operands are all batched.
+//
 // The block form, `kanter_warp_block_f32`, replaces `_warp_block`
 // (pallas_warp.py:306), which `_warp_pallas_sharded` (pallas_warp.py:376)
 // runs on every shard of a row-sharded plane after a ring exchange of
@@ -82,10 +91,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;
 constexpr int kMaxPlanes = 4;
+constexpr int kMaxGridZ = 65535;  // canvases per launch
 
 struct Planes {
     const float* in[kMaxPlanes];
     float* out[kMaxPlanes];
+    long long in_stride[kMaxPlanes];  // batch strides in floats; 0: shared
 };
 
 __device__ __forceinline__ float clip_floor(float c) {
@@ -139,10 +150,25 @@ __device__ __forceinline__ float lerp_at(const float* r0, const float* r1, const
     return __fadd_rn(nx0, __fmul_rn(s.fv, __fsub_rn(nx1, nx0)));
 }
 
+// BATCHED: canvas blockIdx.z of each operand at its batch stride; one plane
+// keeps the instance without the batch's 64-bit arithmetic (on an H100 SXM
+// the batched instance takes 2.9% longer on one 4096^2 RGBA image:
+// scripts/batch_instance_ab.py)
+template <bool BATCHED>
 __global__ void warp_bilinear(Planes planes, int n_planes, const float* __restrict__ strength,
-                              float kx, float ky, int h, int w) {
+                              float kx, float ky, int h, int w, long long strength_stride,
+                              long long out_stride) {
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     if (x >= w) return;
+    if (BATCHED) {
+        const long long z = blockIdx.z;
+        strength += z * strength_stride;
+#pragma unroll
+        for (int p = 0; p < kMaxPlanes; ++p) {
+            planes.in[p] += z * planes.in_stride[p];
+            planes.out[p] += z * out_stride;
+        }
+    }
     for (int y = blockIdx.y; y < h; y += gridDim.y) {
         const size_t idx = (size_t)y * w + x;
         const Sample s = sample_at(strength[idx], x, y, kx, ky, h, w);
@@ -355,20 +381,37 @@ int launch_direct(const BlockArgs& a, bool vec, int th, int tw, cudaStream_t str
     return (int)cudaGetLastError();
 }
 
-dim3 grid_for(int h, int w) {
-    return dim3((w + kThreads - 1) / kThreads, h < kMaxGridY ? h : kMaxGridY);
+dim3 grid_for(int h, int w, int batch) {
+    return dim3((w + kThreads - 1) / kThreads, h < kMaxGridY ? h : kMaxGridY, batch);
 }
 
 }  // namespace
 
+// `batch` canvases: plane p of canvas b at in_p + b * in_stride_p, its strength
+// at strength + b * strength_stride, its output at out_p + b * out_stride
+// (floats; an input stride of 0 shares the plane or the map among canvases).
 extern "C" int kanter_warp_bilinear_f32(const float* in0, const float* in1, const float* in2,
                                         const float* in3, float* out0, float* out1, float* out2,
                                         float* out3, int n_planes, const float* strength,
-                                        float kx, float ky, int h, int w, cudaStream_t stream) {
-    if (n_planes < 1 || n_planes > kMaxPlanes) return (int)cudaErrorInvalidValue;
-    const Planes planes = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
-    warp_bilinear<<<grid_for(h, w), kThreads, 0, stream>>>(planes, n_planes, strength, kx, ky,
-                                                           h, w);
+                                        float kx, float ky, int h, int w, int batch,
+                                        long long in_stride0, long long in_stride1,
+                                        long long in_stride2, long long in_stride3,
+                                        long long strength_stride, long long out_stride,
+                                        cudaStream_t stream) {
+    if (n_planes < 1 || n_planes > kMaxPlanes || h < 1 || w < 1 || batch < 1 ||
+        batch > kMaxGridZ) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const Planes planes = {{in0, in1, in2, in3},
+                           {out0, out1, out2, out3},
+                           {in_stride0, in_stride1, in_stride2, in_stride3}};
+    if (batch > 1) {
+        warp_bilinear<true><<<grid_for(h, w, batch), kThreads, 0, stream>>>(
+            planes, n_planes, strength, kx, ky, h, w, strength_stride, out_stride);
+    } else {
+        warp_bilinear<false><<<grid_for(h, w, 1), kThreads, 0, stream>>>(
+            planes, n_planes, strength, kx, ky, h, w, 0, 0);
+    }
     return (int)cudaGetLastError();
 }
 

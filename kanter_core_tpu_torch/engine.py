@@ -718,7 +718,8 @@ class Engine:
                 if prog is not None:
                     self._fused_programs.move_to_end(fingerprint)
             if prog is None:
-                prog = CompiledGraph(snapshot, self.tex_pro.device, preset=preset, mesh=mesh)
+                prog = CompiledGraph(snapshot, preset=preset, emit_all=True, mesh=mesh,
+                                     device=self.tex_pro.device)
                 with self._fused_programs_lock:
                     self._fused_programs[fingerprint] = prog
                     while len(self._fused_programs) > self.FUSED_PROGRAM_CACHE_CAP:

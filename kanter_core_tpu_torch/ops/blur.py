@@ -12,6 +12,13 @@ Port of `kanter_core_tpu/ops/blur.py`. Two implementations of one function:
   One launch blurs the plane tile by tile in shared memory, both passes;
   `blur_tile_plan` picks the tile for a radius and a shape on the host.
 
+Both take a `[B, H, W]` batch as well, with vmap's semantics: each canvas
+blurred as the single plane would be, bit for bit. The kernel takes the
+whole batch in one launch (one wave of blocks over the tiles of every
+canvas); the JAX package's batching rule
+(`pallas_blur._blur_pallas_wrapped`'s `custom_vmap`) maps the rank-2
+kernel over the batch instead.
+
 `blur_plane` dispatches on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor the kernel (which raises if it cannot build or
 launch); there is no fallback from one to the other.
@@ -40,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..build import CudaKernel
+from ..build import MAX_BATCH, CudaKernel
 from ..errors import ErrorKind, TexProError
 from ..ids import SlotId
 from ..parallel.sharded import ShardedPlane, shard_planes_rows
@@ -61,30 +68,33 @@ def _taps_for(sigma: float) -> np.ndarray:
     return gaussian_taps(round(float(sigma), 6))
 
 
-def _blur_axis0(plane: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """Weighted sum of wrap-rolled rows, tap order preserved."""
+def _blur_axis(plane: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
+    """Weighted sum of wrap-rolled copies along `dim` (-2: rows, -1:
+    columns), tap order preserved."""
     radius = (len(taps) - 1) // 2
     acc = torch.zeros_like(plane)
     # roll on a length-1 axis is the identity
-    degenerate = plane.shape[0] == 1
+    degenerate = plane.shape[dim] == 1
     for t, w in enumerate(taps):
-        shifted = plane if degenerate else torch.roll(plane, radius - t, dims=0)
+        shifted = plane if degenerate else torch.roll(plane, radius - t, dims=dim)
         acc = acc + shifted * float(w)
     return acc
 
 
 def blur_plane_plain(plane: torch.Tensor, sigma: float) -> torch.Tensor:
-    """The plain torch blur of one `[H, W]` f32 plane, on its device."""
+    """The plain torch blur of one `[H, W]` f32 plane, or of each canvas of
+    a `[B, H, W]` batch, on its device: the vertical pass, then the
+    horizontal one (the JAX package's pass over the transpose, element for
+    element)."""
     taps = _taps_for(sigma)
-    vert = _blur_axis0(plane, taps)
-    return _blur_axis0(vert.t(), taps).t().contiguous()
+    return _blur_axis(_blur_axis(plane, taps, -2), taps, -1).contiguous()
 
 
 def blur_block_plain(block: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
                      sigma: float) -> torch.Tensor:
     """The plain torch blur of one `[block_h, W]` row block whose vertical
     neighbours are the explicit halos `top` (the radius rows before it) and
-    `bot` (the radius rows after it): `_blur_axis0`'s taps, order and
+    `bot` (the radius rows after it): `_blur_axis`'s taps, order and
     zero-initialised accumulator over the window `[top; block; bot]`,
     keeping the block's rows, then the dense horizontal pass."""
     taps = _taps_for(sigma)
@@ -94,7 +104,7 @@ def blur_block_plain(block: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
     for t, w in enumerate(taps):
         # window row y + t holds plane row y + t − radius
         acc = acc + window[t:t + block_h] * float(w)
-    return _blur_axis0(acc.t(), taps).t().contiguous()
+    return _blur_axis(acc, taps, -1).contiguous()
 
 
 # what one block may take of an SM's shared memory (232,448 bytes), and the
@@ -163,10 +173,12 @@ def blur_tile_plan(radius: int, h: int, w: int) -> BlurTilePlan:
     )
 
 
-# (in, out, host taps, ntaps, h, w, th, tw, scratch, device taps, stream)
+# (in, out, host taps, ntaps, h, w, th, tw, scratch, device taps, batch,
+#  in batch stride, out batch stride, stream)
 BLUR_KERNEL = CudaKernel(
     "blur", "kanter_blur_wrap_f32",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
 )
 # the block entry of the same library; its own launch count
 # (top, block, bot, out, host taps, ntaps, block_h, w, th, tw, scratch,
@@ -180,7 +192,8 @@ BLUR_BLOCK_KERNEL = CudaKernel(
 def _launch_args(taps: np.ndarray, h: int, w: int, like: torch.Tensor) -> tuple:
     """(th, tw, scratch, device taps, tensors to keep alive) for one launch:
     the tile of `blur_tile_plan` up to `BLUR_TILE_MAX_RADIUS`; above it the
-    two-pass form's scratch plane and its taps in device memory."""
+    two-pass form's scratch (the size of the whole batch `like`) and its
+    taps in device memory."""
     radius = (len(taps) - 1) // 2
     if radius <= BLUR_TILE_MAX_RADIUS:
         plan = blur_tile_plan(radius, h, w)
@@ -190,25 +203,30 @@ def _launch_args(taps: np.ndarray, h: int, w: int, like: torch.Tensor) -> tuple:
     return 0, 0, scratch.data_ptr(), taps_dev.data_ptr(), (scratch, taps_dev)
 
 
-def _check_cuda_plane(t: torch.Tensor, what: str, shape=None) -> None:
+def _check_cuda_plane(t: torch.Tensor, what: str, shape=None, batched: bool = False) -> None:
+    dims = (2, 3) if batched else (2,)
     if not (
-        t.is_cuda and t.dtype == torch.float32 and t.dim() == 2 and t.is_contiguous()
+        t.is_cuda and t.dtype == torch.float32 and t.dim() in dims and t.is_contiguous()
         and (shape is None or tuple(t.shape) == tuple(shape))
+        and (t.dim() == 2 or 1 <= t.shape[0] <= MAX_BATCH)
     ):
         want = "" if shape is None else f" of shape {tuple(shape)}"
+        rank = f"[H, W] or [B, H, W] (B <= {MAX_BATCH})" if batched else "2-D"
         raise TexProError(
             ErrorKind.GENERIC,
-            f"blur kernel needs contiguous 2-D float32 CUDA tensors{want}; {what} is "
+            f"blur kernel needs contiguous {rank} float32 CUDA tensors{want}; {what} is "
             f"{t.dtype} {tuple(t.shape)} on {t.device}",
         )
 
 
 def blur_plane_cuda(plane: torch.Tensor, sigma: float) -> torch.Tensor:
-    """The hand-written CUDA blur of one contiguous `[H, W]` f32 plane on a
-    CUDA device. Launches on the current stream; raises if the input is not
-    such a plane, or if the kernel does not build or launch."""
-    _check_cuda_plane(plane, "the plane")
-    h, w = plane.shape
+    """The hand-written CUDA blur of one contiguous `[H, W]` f32 plane, or
+    of every canvas of a contiguous `[B, H, W]` batch in one launch, on a
+    CUDA device. Launches on the current stream; raises if the input is
+    not such a tensor, or if the kernel does not build or launch."""
+    _check_cuda_plane(plane, "the plane", batched=True)
+    h, w = plane.shape[-2:]
+    batch = plane.shape[0] if plane.dim() == 3 else 1
     kernel = BLUR_KERNEL.entry()
     taps = _taps_for(sigma)  # host memory: the entry hands them over by value
     out = torch.empty_like(plane)
@@ -217,13 +235,13 @@ def blur_plane_cuda(plane: torch.Tensor, sigma: float) -> torch.Tensor:
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         rc = kernel(
             plane.data_ptr(), out.data_ptr(), taps.ctypes.data, len(taps), h, w,
-            th, tw, scratch, taps_dev, stream,
+            th, tw, scratch, taps_dev, batch, h * w, h * w, stream,
         )
     if rc != 0:
         raise TexProError(
             ErrorKind.NODE_PROCESSING, f"blur kernel launch failed: CUDA error {rc}"
         )
-    BLUR_KERNEL.count_launch(round(float(sigma), 6))
+    BLUR_KERNEL.count_launch(round(float(sigma), 6), batch)
     return out
 
 
@@ -323,9 +341,10 @@ def blur_plane_sharded(sp: ShardedPlane, sigma: float) -> ShardedPlane:
 
 
 def blur_plane(plane, sigma: float):
-    """Separable wrap blur of one `[H, W]` f32 plane: the plain version for a
-    CPU tensor, the CUDA kernel for a CUDA tensor, the sharded form for a
-    `ShardedPlane`."""
+    """Separable wrap blur of one `[H, W]` f32 plane, or of each canvas of a
+    `[B, H, W]` batch: the plain version for a CPU tensor, the CUDA kernel
+    (one launch for the whole batch) for a CUDA tensor, the sharded form
+    for a `ShardedPlane`."""
     if isinstance(plane, ShardedPlane):
         return blur_plane_sharded(plane, sigma)
     if plane.device.type == "cpu":

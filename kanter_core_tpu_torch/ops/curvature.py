@@ -17,8 +17,8 @@ from .common import NodePlanes, gray_input
 
 
 def curvature_plane(plane, strength):
-    """Curvature of one `[H, W]` gray plane (or `ShardedPlane`); `strength`
-    is an f32 scalar."""
+    """Curvature of one `[H, W]` gray plane, of each canvas of a `[B, H, W]`
+    batch, or of a `ShardedPlane`; `strength` is an f32 scalar."""
     if isinstance(plane, ShardedPlane):
         halos = plane.ring_halos(1)
         ups = ShardedPlane(plane.mesh, [
@@ -29,17 +29,17 @@ def curvature_plane(plane, strength):
         ])
         return map_bands(lambda p, u, d: _curvature(p, u, d, strength), plane, ups, downs)
     # a roll on a length-1 axis is the identity
-    tall = plane.shape[0] > 1
-    up = torch.roll(plane, 1, dims=0) if tall else plane
-    down = torch.roll(plane, -1, dims=0) if tall else plane
+    tall = plane.shape[-2] > 1
+    up = torch.roll(plane, 1, dims=-2) if tall else plane
+    down = torch.roll(plane, -1, dims=-2) if tall else plane
     return _curvature(plane, up, down, strength)
 
 
 def _curvature(plane, up, down, strength):
     """The Laplacian and remap, given the rows above and below each pixel."""
-    wide = plane.shape[1] > 1
-    left = torch.roll(plane, 1, dims=1) if wide else plane
-    right = torch.roll(plane, -1, dims=1) if wide else plane
+    wide = plane.shape[-1] > 1
+    left = torch.roll(plane, 1, dims=-1) if wide else plane
+    right = torch.roll(plane, -1, dims=-1) if wide else plane
     lap = ((plane - up) + (plane - down)) + ((plane - left) + (plane - right))
     return torch.clamp((lap * float(strength)) + 0.5, 0.0, 1.0)
 

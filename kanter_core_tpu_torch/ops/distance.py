@@ -15,6 +15,13 @@ The nearest-seed state is one packed i32 plane (`y << 16 | x`, sentinel
   launch for the run of near steps (8, 4, 2, 1, 1), as `jfa_launch_plan`
   lays the ladder out. Exact arithmetic throughout, so bit-identical.
 
+Both take a `[B, H, W]` batch of states as well, with vmap's semantics:
+each canvas propagated as the single state would be. The kernels take the
+whole batch in one launch per entry of the plan (the canvas in
+`blockIdx.z`), so a ladder is as many launches for 16 canvases as for one;
+the JAX package's batching rule (`pallas_distance._jfa_ladder`'s) maps the
+rank-2 ladder over the batch instead.
+
 `jfa_propagate` takes the plain version for a CPU tensor and the kernel for
 a CUDA tensor (which raises if it cannot build or launch); there is no
 fallback. Seed packing and the final fade are plain torch on the device:
@@ -35,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..build import CudaKernel
+from ..build import MAX_BATCH, CudaKernel
 from ..errors import ErrorKind, TexProError
 from ..parallel.sharded import ShardedPlane, shard_planes_rows
 from ..ids import SlotId
@@ -61,9 +68,10 @@ def _coords(h: int, w: int, device):
 
 
 def pack_seeds(mask: torch.Tensor) -> torch.Tensor:
-    """The packed i32 state of a gray mask: `y << 16 | x` on seeds
-    (`mask > 0.5`), the sentinel elsewhere. Raises past the packing bound."""
-    h, w = mask.shape
+    """The packed i32 state of a gray mask (`[H, W]` or `[B, H, W]`):
+    `y << 16 | x` on seeds (`mask > 0.5`), the sentinel elsewhere. Raises
+    past the packing bound."""
+    h, w = mask.shape[-2:]
     if h > 32767 or w > 65535:
         raise TexProError(
             ErrorKind.GENERIC,
@@ -90,8 +98,9 @@ def d2_of(cand: torch.Tensor, rows, cols, h: int, w: int) -> torch.Tensor:
 
 def jfa_step_plain(state: torch.Tensor, k: int) -> torch.Tensor:
     """One JFA step: each pixel folds its 8 step-`k` toroidal neighbours'
-    candidates, in `(oy, ox)` order, strict `<`."""
-    h, w = state.shape
+    candidates, in `(oy, ox)` order, strict `<` (each canvas of a batch on
+    its own)."""
+    h, w = state.shape[-2:]
     rows, cols = _coords(h, w, state.device)
     best = state
     best_d2 = d2_of(state, rows, cols, h, w)
@@ -101,9 +110,9 @@ def jfa_step_plain(state: torch.Tensor, k: int) -> torch.Tensor:
                 continue
             cand = state
             if h > 1 and oy % h != 0:
-                cand = torch.roll(cand, oy, dims=0)
+                cand = torch.roll(cand, oy, dims=-2)
             if w > 1 and ox % w != 0:
-                cand = torch.roll(cand, ox, dims=1)
+                cand = torch.roll(cand, ox, dims=-1)
             d2 = d2_of(cand, rows, cols, h, w)
             better = d2 < best_d2
             best = torch.where(better, cand, best)
@@ -113,21 +122,23 @@ def jfa_step_plain(state: torch.Tensor, k: int) -> torch.Tensor:
 
 def jfa_propagate_plain(state: torch.Tensor) -> torch.Tensor:
     """The whole ladder in plain torch."""
-    for k in _jfa_steps(*state.shape):
+    for k in _jfa_steps(*state.shape[-2:]):
         state = jfa_step_plain(state, k)
     return state
 
 
-# a far step: (in, out, k, h, w, stream)
+# a far step: (in, out, k, h, w, batch, in batch stride, out batch stride,
+# stream)
 JFA_KERNEL = CudaKernel(
     "jfa", "kanter_jfa_step_i32",
-    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
 )
 # a fused run of near steps, the second entry of the same library, with its
-# own launch count: (in, out, host steps, n, h, w, th, tw, stream)
+# own launch count: (in, out, host steps, n, h, w, th, tw, batch, in batch
+# stride, out batch stride, stream)
 JFA_NEAR_KERNEL = CudaKernel(
     "jfa", "kanter_jfa_near_i32",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
 )
 
 JFA_NEAR_HALO = 16  # the most the fused near steps may sum to (8, 4, 2, 1, 1)
@@ -169,9 +180,10 @@ def jfa_step_form(k: int, h: int, w: int) -> str:
 
 def jfa_propagate_cuda(state: torch.Tensor) -> torch.Tensor:
     """The whole ladder through the CUDA kernels, one launch per entry of
-    `jfa_launch_plan`, on the current stream. Raises if `state` is not a
-    contiguous 2-D int32 CUDA tensor or a kernel does not build or launch."""
-    launches = jfa_launch_plan(*state.shape) if state.dim() == 2 else []
+    `jfa_launch_plan` for a state or a whole `[B, H, W]` batch, on the
+    current stream. Raises if `state` is not a contiguous 2-D or 3-D int32
+    CUDA tensor or a kernel does not build or launch."""
+    launches = jfa_launch_plan(*state.shape[-2:]) if state.dim() in (2, 3) else []
     return jfa_run_launches(state, launches)
 
 
@@ -179,15 +191,16 @@ def jfa_run_launches(state: torch.Tensor, launches) -> torch.Tensor:
     """The given launches of a plan, in order, from `state` (which is never
     written) through at most two work buffers."""
     if not (
-        state.is_cuda and state.dtype == torch.int32 and state.dim() == 2
-        and state.is_contiguous()
+        state.is_cuda and state.dtype == torch.int32 and state.is_contiguous()
+        and (state.dim() == 2 or (state.dim() == 3 and 1 <= state.shape[0] <= MAX_BATCH))
     ):
         raise TexProError(
             ErrorKind.GENERIC,
-            "JFA kernel needs a contiguous 2-D int32 CUDA tensor, got "
-            f"{state.dtype} {tuple(state.shape)} on {state.device}",
+            f"JFA kernel needs a contiguous [H, W] or [B, H, W] (B <= {MAX_BATCH}) int32 "
+            f"CUDA tensor, got {state.dtype} {tuple(state.shape)} on {state.device}",
         )
-    h, w = state.shape
+    h, w = state.shape[-2:]
+    batch = state.shape[0] if state.dim() == 3 else 1
     step_entry = JFA_KERNEL.entry()
     near_entry = JFA_NEAR_KERNEL.entry()
     src = state
@@ -199,18 +212,19 @@ def jfa_run_launches(state: torch.Tensor, launches) -> torch.Tensor:
             if launch.entry == "near":
                 ks = (ctypes.c_int * len(launch.steps))(*launch.steps)
                 rc = near_entry(src.data_ptr(), dst.data_ptr(), ks, len(launch.steps), h, w,
-                                launch.th, launch.tw, stream)
+                                launch.th, launch.tw, batch, h * w, h * w, stream)
                 kernel = JFA_NEAR_KERNEL
             else:
                 (k,) = launch.steps
-                rc = step_entry(src.data_ptr(), dst.data_ptr(), k, h, w, stream)
+                rc = step_entry(src.data_ptr(), dst.data_ptr(), k, h, w, batch, h * w, h * w,
+                                stream)
                 kernel = JFA_KERNEL
             if rc != 0:
                 raise TexProError(
                     ErrorKind.NODE_PROCESSING,
                     f"JFA kernel launch failed ({launch}): CUDA error {rc}",
                 )
-            kernel.count_launch(launch.steps)
+            kernel.count_launch(launch.steps, batch)
             if spare is None:
                 spare = torch.empty_like(state)
                 src, dst = dst, spare
@@ -220,8 +234,9 @@ def jfa_run_launches(state: torch.Tensor, launches) -> torch.Tensor:
 
 
 def jfa_propagate(state: torch.Tensor) -> torch.Tensor:
-    """The JFA ladder on a packed state: the plain version for a CPU tensor,
-    the CUDA kernel for a CUDA tensor."""
+    """The JFA ladder on a packed state (or a `[B, H, W]` batch of them):
+    the plain version for a CPU tensor, the CUDA kernels for a CUDA
+    tensor."""
     if state.device.type == "cpu":
         return jfa_propagate_plain(state)
     if state.device.type == "cuda":
@@ -230,12 +245,13 @@ def jfa_propagate(state: torch.Tensor) -> torch.Tensor:
 
 
 def distance_plane(mask, max_dist):
-    """Normalized distance fade of one `[H, W]` gray plane (or
-    `ShardedPlane`); `max_dist` is an f32 scalar (pixels)."""
+    """Normalized distance fade of one `[H, W]` gray plane, of each canvas
+    of a `[B, H, W]` batch, or of a `ShardedPlane`; `max_dist` is an f32
+    scalar (pixels)."""
     if isinstance(mask, ShardedPlane):
         whole = mask.gather(mask.mesh.devices[0], "distance")
         return shard_planes_rows(mask.mesh, distance_plane(whole, max_dist))
-    h, w = mask.shape
+    h, w = mask.shape[-2:]
     packed = jfa_propagate(pack_seeds(mask))
     rows, cols = _coords(h, w, mask.device)
     dist = sqrt_f32(d2_of(packed, rows, cols, h, w).to(torch.float32))

@@ -44,7 +44,7 @@ def _h2n_core(h: torch.Tensor, up: torch.Tensor, height: int, width: int):
     pdx = f32(1.0) / f32(width)
     pdy = f32(1.0) / f32(height)
     # sample at (x-1, y) wrapped; identity on a single-column plane
-    left = h if h.shape[1] == 1 else torch.roll(h, 1, dims=1)
+    left = h if h.shape[-1] == 1 else torch.roll(h, 1, dims=-1)
 
     def full(value) -> torch.Tensor:
         return torch.full_like(h, float(value))
@@ -76,7 +76,8 @@ def _h2n_core(h: torch.Tensor, up: torch.Tensor, height: int, width: int):
 
 def h2n_planes(h):
     """`[H, W]` height → the four `[H, W]` planes of the normal map (four
-    `ShardedPlane`s for a sharded height)."""
+    `[B, H, W]` batches for a batch of heights, four `ShardedPlane`s for a
+    sharded height)."""
     if isinstance(h, ShardedPlane):
         height, width = h.shape
         ups = ShardedPlane(h.mesh, [
@@ -85,8 +86,8 @@ def h2n_planes(h):
         ])
         return map_bands(lambda b, up: _h2n_core(b, up, height, width), h, ups)
     # roll on a length-1 axis is the identity
-    up = h if h.shape[0] == 1 else torch.roll(h, 1, dims=0)
-    return _h2n_core(h, up, *h.shape)
+    up = h if h.shape[-2] == 1 else torch.roll(h, 1, dims=-2)
+    return _h2n_core(h, up, *h.shape[-2:])
 
 
 def process(slot_datas, node):

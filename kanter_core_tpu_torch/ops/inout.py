@@ -21,8 +21,13 @@ from .image_io import image_planes, save_rgba_png
 
 def value_plane(value, device) -> torch.Tensor:
     """The 1×1 Gray constant of a Value node (`value.rs:14-26`), on
-    `device`; consumers upscale it through their resize policy."""
-    return torch.full((1, 1), float(np.float32(value)), dtype=torch.float32, device=device)
+    `device`; consumers upscale it through their resize policy. A `[B]`
+    vector of values (a Value batched over canvases) gives a `[B, 1, 1]`
+    batch."""
+    if np.ndim(value) == 0 and not isinstance(value, torch.Tensor):
+        return torch.full((1, 1), float(np.float32(value)), dtype=torch.float32, device=device)
+    values = torch.as_tensor(value).to(device=device, dtype=torch.float32)
+    return values.reshape(-1, 1, 1) if values.dim() else values.reshape(1, 1)
 
 
 def image_node_planes(path, place) -> list:

@@ -60,7 +60,7 @@ def _binary(mix_type: MixType):
 
 
 def _size(planes) -> Size:
-    h, w = planes[0].shape
+    h, w = planes[0].shape[-2:]
     return Size(w, h)
 
 

@@ -199,9 +199,11 @@ def resample_weights(in_len: int, out_len: int, filt: ResizeFilter):
     return lefts, weights
 
 
-def _apply_axis0(plane: torch.Tensor, lefts, weights, in_len: int) -> torch.Tensor:
-    """Resample along axis 0 of an `[H, W]` tensor; tap order preserved,
-    zero-weight taps masked, the pass clamped to [0, 1].
+def _apply_axis(plane: torch.Tensor, lefts, weights, in_len: int, dim: int) -> torch.Tensor:
+    """Resample along `dim` (-2: rows, -1: columns) of an `[..., H, W]`
+    tensor; tap order preserved, zero-weight taps masked, the pass clamped
+    to [0, 1]. The JAX package's horizontal pass, over the transpose, is
+    this one element for element.
 
     KNOWN DIVERGENCE from the Rust crate (non-finite planes only, kept
     identical to the JAX package): the zero-weight mask exists because tap
@@ -210,31 +212,35 @@ def _apply_axis0(plane: torch.Tensor, lefts, weights, in_len: int) -> torch.Tens
     where Rust would propagate a NaN pixel."""
     device = plane.device
     out_len, taps = weights.shape
-    weights_t = torch.from_numpy(weights).to(device)
-    acc = torch.zeros((out_len, plane.shape[1]), dtype=torch.float32, device=device)
+    # a tap's weights along the resampled axis, broadcast along the other
+    weights_t = torch.from_numpy(weights if dim == -2 else np.ascontiguousarray(weights.T))
+    weights_t = weights_t.to(device)
+    shape = list(plane.shape)
+    shape[dim] = out_len
+    acc = torch.zeros(shape, dtype=torch.float32, device=device)
     for t in range(taps):
         idx = np.minimum(lefts + t, in_len - 1).astype(np.int64)
-        rows = plane.index_select(0, torch.from_numpy(idx).to(device))
-        w = weights_t[:, t : t + 1]
+        rows = plane.index_select(dim, torch.from_numpy(idx).to(device))
+        w = weights_t[:, t : t + 1] if dim == -2 else weights_t[t : t + 1, :]
         acc = acc + torch.where(w == 0.0, 0.0, rows * w)
     return torch.clamp(acc, 0.0, 1.0)
 
 
 def resample_plane(plane: torch.Tensor, out_size: Size, filt: ResizeFilter,
                    rows=None) -> torch.Tensor:
-    """Bit-exact resize of one `[H, W]` plane to `out_size`, on the plane's
-    device. Matches `imageops::resize`: vertical pass (height) then
+    """Bit-exact resize of one `[H, W]` plane (or of each canvas of a
+    `[B, H, W]` batch) to `out_size`, on the plane's device. Matches `imageops::resize`: vertical pass (height) then
     horizontal pass (width), each clamping to [0, 1]. `rows`, a
     `(start, stop)` pair, computes only those output rows (one shard's
     band): every output row is a sum of its own taps, so the band holds the
     same bits as those rows of the whole result."""
-    in_h, in_w = plane.shape
+    in_h, in_w = plane.shape[-2:]
     lefts_v, weights_v = resample_weights(in_h, out_size.height, filt)
     if rows is not None:
         lefts_v, weights_v = lefts_v[rows[0]:rows[1]], weights_v[rows[0]:rows[1]]
-    tmp = _apply_axis0(plane, lefts_v, weights_v, in_h)  # [outH, W]
+    tmp = _apply_axis(plane, lefts_v, weights_v, in_h, -2)  # [..., outH, W]
     lefts_h, weights_h = resample_weights(in_w, out_size.width, filt)
-    return _apply_axis0(tmp.t(), lefts_h, weights_h, in_w).t().contiguous()
+    return _apply_axis(tmp, lefts_h, weights_h, in_w, -1).contiguous()
 
 
 # --- resize policy resolution (`shared.rs:61-139`) ---

@@ -31,7 +31,7 @@ def combine_planes(by_slot: dict, place) -> list:
     green, blue, alpha); an RGBA input is an `INVALID_SLOT_TYPE` error
     (`combine_rgba.rs:22-25`)."""
     if by_slot:
-        h, w = by_slot[min(by_slot)][0].shape
+        h, w = by_slot[min(by_slot)][0].shape[-2:]
     else:
         h, w = 1, 1
     shared_zero = None

@@ -44,10 +44,25 @@ def _wrapped_floor(coord: torch.Tensor, extent: int):
     return fl, torch.remainder(idx, extent)
 
 
+def _take(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`plane`'s texels at the flat indices `idx` (`[nr, nc]`), canvas by
+    canvas where either is a `[B, ...]` batch (the other one then serves
+    every canvas, as vmap broadcasts an unbatched operand)."""
+    if plane.dim() == 2 and idx.dim() == 2:
+        return plane.reshape(-1)[idx]
+    flat = plane.reshape(plane.shape[0] if plane.dim() == 3 else 1, -1)
+    index = idx.reshape(idx.shape[0] if idx.dim() == 3 else 1, -1)
+    b = max(flat.shape[0], index.shape[0])
+    taken = torch.gather(flat.expand(b, -1), 1, index.expand(b, -1))
+    return taken.reshape(b, *idx.shape[-2:])
+
+
 def bilinear_wrap_gather(planes, u: torch.Tensor, v: torch.Tensor, wh: int, ww: int,
                          row_local=None):
     """Bilinear samples of each `[wh, ww]` plane at continuous texel
-    coordinates `u`/`v` (`[nr, nc]` f32), wrapping toroidally.
+    coordinates `u`/`v` (`[nr, nc]` f32), wrapping toroidally. A plane or
+    the coordinates may carry a leading batch axis (`[B, ...]`); each
+    canvas is sampled as on its own.
 
     `row_local` (optional) maps the wrapped GLOBAL source rows to rows of
     `planes` when they hold a row subset of the canvas (a shard's
@@ -59,7 +74,7 @@ def bilinear_wrap_gather(planes, u: torch.Tensor, v: torch.Tensor, wh: int, ww: 
     fv = v - vf
     x1 = torch.where(x0 + 1 == ww, 0, x0 + 1)
     y1 = torch.where(y0 + 1 == wh, 0, y0 + 1)
-    stride = planes[0].shape[1]  # every plane of an image has one shape
+    stride = planes[0].shape[-1]  # every plane of an image has one shape
     if row_local is not None:
         y0, y1 = row_local(y0), row_local(y1)
     row0 = y0.to(torch.int64) * stride
@@ -67,8 +82,7 @@ def bilinear_wrap_gather(planes, u: torch.Tensor, v: torch.Tensor, wh: int, ww: 
     i00, i10, i01, i11 = row0 + x0, row0 + x1, row1 + x0, row1 + x1
     outs = []
     for p in planes:
-        flat = p.reshape(-1)
-        n00, n10, n01, n11 = flat[i00], flat[i10], flat[i01], flat[i11]
+        n00, n10, n01, n11 = (_take(p, i) for i in (i00, i10, i01, i11))
         nx0 = n00 + fu * (n10 - n00)
         nx1 = n01 + fu * (n11 - n01)
         outs.append(nx0 + fv * (nx1 - nx0))
@@ -97,8 +111,9 @@ def transform_bindings(payload) -> dict:
 
 def transform_planes(planes, b: dict) -> tuple:
     """The affine sample of every `[H, W]` plane of an image onto its own
-    canvas; `b` from `transform_bindings`."""
-    h, w = planes[0].shape
+    canvas (each canvas of a `[B, H, W]` plane alike); `b` from
+    `transform_bindings`."""
+    h, w = planes[0].shape[-2:]
     device = planes[0].device
     cos, sin = (float(c) for c in b["cs"])
     inv_x, inv_y = (float(c) for c in b["inv_s"])

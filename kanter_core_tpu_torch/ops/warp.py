@@ -14,6 +14,14 @@ rounded once (quarter turns from the exact table). Two implementations:
   (`pallas_warp.warp_pallas`), whose staircase pair table and halo buckets
   existed only for XLA:TPU's slow gathers; the port has neither.
 
+Both take `[B, H, W]` batches as well, with vmap's semantics: the planes
+and the strength map may each be batched or shared by every canvas, and
+each canvas is warped as on its own. The kernel takes the whole batch in
+one launch (the canvas in `blockIdx.z`, a batch stride of 0 for a shared
+operand); the JAX package's batching rule
+(`pallas_warp._warp_pallas_wrapped`'s) maps the rank-2 kernel over a batch
+whose operands are all batched.
+
 `warp_planes` takes the plain version for CPU tensors and the kernel for
 CUDA tensors (which raises if it cannot build or launch); no fallback.
 
@@ -44,7 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..build import CudaKernel
+from ..build import MAX_BATCH, CudaKernel
 from ..errors import ErrorKind, TexProError
 from ..parallel.sharded import ShardedPlane, shard_planes_rows
 from ..ids import SlotId
@@ -96,7 +104,7 @@ def warp_bindings(payload) -> dict:
 def _coords(strength: torch.Tensor, k, rows: torch.Tensor):
     """Continuous sample coordinates `(u, v)` of the output pixels at the
     f32 global `rows` (a column) and every column."""
-    w = strength.shape[1]
+    w = strength.shape[-1]
     kx, ky = (float(c) for c in np.asarray(k, np.float32))
     ms = torch.clamp(strength, 0.0, 1.0)
     ms = torch.where(torch.isnan(strength), 0.5, ms)
@@ -106,8 +114,9 @@ def _coords(strength: torch.Tensor, k, rows: torch.Tensor):
 
 
 def warp_planes_plain(planes, strength: torch.Tensor, k) -> tuple:
-    """The plain torch warp of `[H, W]` planes by an `[H, W]` strength map."""
-    h, w = planes[0].shape
+    """The plain torch warp of `[H, W]` planes by an `[H, W]` strength map;
+    either may be a `[B, H, W]` batch."""
+    h, w = planes[0].shape[-2:]
     rows = torch.arange(h, dtype=torch.float32, device=strength.device)[:, None]
     u, v = _coords(strength, k, rows)
     return bilinear_wrap_gather(planes, u, v, h, w)
@@ -133,10 +142,12 @@ def warp_block_plain(block_planes, strength_blk: torch.Tensor, k, tops, bots,
     return bilinear_wrap_gather(windows, u, v, h, w, row_local=row_local)
 
 
+# (4 planes, 4 outputs, n planes, strength, kx, ky, h, w, batch, 4 plane
+#  batch strides, strength batch stride, output batch stride, stream)
 WARP_KERNEL = CudaKernel(
     "warp", "kanter_warp_bilinear_f32",
     [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
-    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
 )
 
 # the block entry of the same library; its own launch count
@@ -151,43 +162,63 @@ _F32 = torch.float32
 _EXACT = 1 << 24  # every pixel coordinate below it is an exact f32
 
 
-def _check_plane(t: torch.Tensor, what: str, shape) -> None:
-    if not (
-        t.is_cuda and t.dtype == torch.float32 and t.dim() == 2
-        and t.is_contiguous() and tuple(t.shape) == tuple(shape)
-    ):
-        raise TexProError(
-            ErrorKind.GENERIC,
-            f"warp kernel needs contiguous {tuple(shape)} float32 CUDA tensors; "
-            f"{what} is {t.dtype} {tuple(t.shape)} on {t.device}",
-        )
+def _batch_of(tensors, shape) -> int:
+    """The batch of the dense kernel's operands: each a contiguous f32 CUDA
+    tensor on one device, `[H, W]` of `shape` or a `[B, H, W]` batch of
+    them, every batched one of one `B`; 0 when none is batched."""
+    device = tensors[0].device
+    batch = 0
+    for t in tensors:
+        if not (
+            t.is_cuda and t.dtype == torch.float32 and t.dim() in (2, 3) and t.is_contiguous()
+            and tuple(t.shape[-2:]) == tuple(shape) and t.device == device
+            and (t.dim() == 2 or batch in (0, t.shape[0]))
+            and (t.dim() == 2 or 1 <= t.shape[0] <= MAX_BATCH)
+        ):
+            raise TexProError(
+                ErrorKind.GENERIC,
+                f"warp kernel needs contiguous {tuple(shape)} float32 CUDA tensors or one "
+                f"batch of them (B <= {MAX_BATCH}) on {device}; got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}",
+            )
+        if t.dim() == 3:
+            batch = t.shape[0]
+    return batch
 
 
 def warp_planes_cuda(planes, strength: torch.Tensor, k) -> tuple:
     """The hand-written CUDA warp: one launch per group of up to four
-    planes (one for a gray or an RGBA image), on the current stream."""
-    shape = tuple(planes[0].shape)
-    _check_plane(strength, "the strength map", shape)
-    for p in planes:
-        _check_plane(p, "a plane", shape)
+    planes (one for a gray or an RGBA image), on the current stream. The
+    planes and the strength map may each be `[B, H, W]` batches or shared
+    `[H, W]` planes; with any batch the launch covers every canvas and each
+    output is a batch."""
+    shape = tuple(planes[0].shape[-2:])
+    batch = _batch_of([strength, *planes], shape)
     h, w = shape
     kx, ky = (float(c) for c in np.asarray(k, np.float32))
     kernel = WARP_KERNEL.entry()
-    outs = [torch.empty_like(p) for p in planes]
+    out_shape = (batch, h, w) if batch else (h, w)
+    outs = [torch.empty(out_shape, dtype=_F32, device=strength.device) for _ in planes]
+
+    def stride(t):
+        return h * w if t.dim() == 3 else 0
+
     with torch.cuda.device(strength.device):
         stream = torch.cuda.current_stream(strength.device).cuda_stream
         for start in range(0, len(planes), _MAX_PLANES):
             group = range(start, min(start + _MAX_PLANES, len(planes)))
             ins = [planes[i].data_ptr() for i in group]
             dsts = [outs[i].data_ptr() for i in group]
+            strides = [stride(planes[i]) for i in group]
             pad = [None] * (_MAX_PLANES - len(group))
             rc = kernel(*ins, *pad, *dsts, *pad, len(group), strength.data_ptr(),
-                        kx, ky, h, w, stream)
+                        kx, ky, h, w, max(batch, 1), *strides, *[0] * len(pad),
+                        stride(strength), h * w, stream)
             if rc != 0:
                 raise TexProError(
                     ErrorKind.NODE_PROCESSING, f"warp kernel launch failed: CUDA error {rc}"
                 )
-            WARP_KERNEL.count_launch()
+            WARP_KERNEL.count_launch(batch=batch)
     return tuple(outs)
 
 
@@ -426,8 +457,9 @@ def warp_planes_mesh(planes, strength: ShardedPlane, k, halo) -> tuple:
 
 
 def warp_planes(planes, strength, k, halo=None) -> tuple:
-    """Warp of an image's planes by a strength map of the same size: the
-    plain version for CPU tensors, the CUDA kernel for CUDA tensors, the
+    """Warp of an image's planes by a strength map of the same size (any of
+    them a `[B, H, W]` batch): the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors, the
     mesh form (with the row `halo` of `warp_bindings`) when any is a
     `ShardedPlane`, which all must then be."""
     if any(isinstance(x, ShardedPlane) for x in (strength, *planes)):

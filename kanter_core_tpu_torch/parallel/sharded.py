@@ -1,11 +1,13 @@
-"""Row-sharded planes over a device mesh.
+"""Row-sharded planes and batch-sharded canvases over a device mesh.
 
-Port of the row side of `kanter_core_tpu/parallel/sharded.py`. The JAX
-package places a plane with `NamedSharding(mesh, P("rows", None))` and lets
-GSPMD partition the program; here the sharding is explicit data:
+Port of `kanter_core_tpu/parallel/sharded.py`. The JAX package places a
+plane with `NamedSharding(mesh, P("rows", None))` (or a batch with
+`P("batch", None, None)`) and lets GSPMD partition the program; here the
+sharding is explicit data:
 
-- a `Mesh` is an ordered tuple of `torch.device`s along the one axis
-  `"rows"`. One device may appear more than once (the shards then share a card, or the
+- a `Mesh` is an ordered tuple of `torch.device`s along one axis, `"rows"`
+  (`TextureProcessor(mesh=...)`) or `"batch"` (`BatchedGraph`,
+  `BatchedLiveSession`). One device may appear more than once (the shards then share a card, or the
   CPU), so every sharding step, halo exchange and block kernel runs on one
   card as it would on several;
 - a `ShardedPlane` is an `[H, W]` plane held as `n` contiguous row bands of
@@ -17,6 +19,14 @@ GSPMD partition the program; here the sharding is explicit data:
   all when both shards share one), outside any kernel;
   `ring_halo_addresses(r)` is the same exchange for a kernel that reads a
   halo in place, by its device address.
+
+On a `"batch"` mesh a `[B, ...]` batch is held as a `BatchShards`: `n`
+contiguous shares of `B // n` canvases, share `j` on `mesh.devices[j]`
+(`shard_planes_batch`). `BatchedGraph` evaluates each share on its device
+with the kernels, no exchange between them, and its outputs stay there until
+the caller gathers them (`BatchShards.gather`, counted under `batch`). A
+mesh with both axes (the JAX package's vmap of the row-sharded kernels) is
+not yet ported.
 
 The process is single-controller, as in the JAX package: one
 `TextureProcessor` and one `LiveGraph` drive every shard. There are no
@@ -30,14 +40,18 @@ processor and every direct call in the process.
 
 from __future__ import annotations
 
+import copy
+import re
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..errors import ErrorKind, TexProError
 
 ROW_AXIS = "rows"
+BATCH_AXIS = "batch"
 
 
 class MeshCounters:
@@ -46,10 +60,11 @@ class MeshCounters:
     rows are unbounded: one gather per plane), `blur_gate`
     and `warp_gate` (a geometry the block kernels cannot serve), `resize`
     (a sharded plane resized to another size), `export` (the u8 export of a
-    sharded image) and `host` (a plane read back or evicted to host
-    memory)."""
+    sharded image), `host` (a plane read back or evicted to host memory)
+    and `batch` (a batch-sharded output gathered into one tensor)."""
 
-    CAUSES = ("distance", "transform", "blur_gate", "warp_gate", "resize", "export", "host")
+    CAUSES = ("distance", "transform", "blur_gate", "warp_gate", "resize", "export", "host",
+              "batch")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -97,13 +112,16 @@ def _resolve(device) -> torch.device:
 
 
 class Mesh:
-    """A 1-D device mesh along `axis_name` (`"rows"`): an ordered tuple of
-    devices of one type. A device may appear more than once."""
+    """A 1-D device mesh along `axis_name` (`"rows"` or `"batch"`): an
+    ordered tuple of devices of one type. A device may appear more than
+    once."""
 
-    __slots__ = ("devices", "ring_local")
-    axis_name = ROW_AXIS
+    __slots__ = ("devices", "ring_local", "axis_name")
 
-    def __init__(self, devices):
+    def __init__(self, devices, axis_name: str = ROW_AXIS):
+        if axis_name not in (ROW_AXIS, BATCH_AXIS):
+            raise TexProError(ErrorKind.GENERIC, f"unknown mesh axis {axis_name!r}")
+        self.axis_name = axis_name
         devices = tuple(_resolve(d) for d in devices)
         if not devices:
             raise TexProError(ErrorKind.GENERIC, "a mesh needs at least one device")
@@ -138,20 +156,29 @@ class Mesh:
     def __eq__(self, other):
         if not isinstance(other, Mesh):
             return NotImplemented
-        return self.devices == other.devices
+        return self.devices == other.devices and self.axis_name == other.axis_name
 
     def __hash__(self):
-        return hash(self.devices)
+        return hash((self.devices, self.axis_name))
 
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]})"
+        axis = "" if self.axis_name == ROW_AXIS else f", {self.axis_name!r}"
+        return f"Mesh({[str(d) for d in self.devices]}{axis})"
 
 
-def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
-    """A 1-D `"rows"` mesh. `devices` is an explicit list and may repeat a
-    device; otherwise the first `n_devices` CUDA devices (all of them when
-    `n_devices` is None). Raises when fewer CUDA devices are visible: this
-    never puts two shards on one card unless `devices` says so."""
+def make_mesh(n_devices: Optional[int] = None, devices=None, axes=(ROW_AXIS,)) -> Mesh:
+    """A 1-D mesh along `axes`, one of `("rows",)` (the default, the row
+    sharding of `TextureProcessor(mesh=...)`) and `("batch",)` (the batch
+    sharding of `BatchedGraph`). `devices` is an explicit list and may
+    repeat a device; otherwise the first `n_devices` CUDA devices (all of
+    them when `n_devices` is None). Raises when fewer CUDA devices are
+    visible: this never puts two shards on one card unless `devices` says
+    so. A mesh of two axes is not yet ported."""
+    axes = tuple(axes)
+    if len(axes) != 1:
+        raise TexProError(
+            ErrorKind.NODE_PROCESSING, f"a mesh of axes {axes} is not yet ported (one axis only)"
+        )
     if devices is not None:
         devices = list(devices)
         if n_devices is not None and n_devices != len(devices):
@@ -159,7 +186,7 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
                 ErrorKind.GENERIC,
                 f"make_mesh: n_devices={n_devices} but {len(devices)} devices given",
             )
-        return Mesh(devices)
+        return Mesh(devices, axes[0])
     visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
     n = visible if n_devices is None else int(n_devices)
     if n < 1 or n > visible:
@@ -167,7 +194,7 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
             ErrorKind.GENERIC,
             f"make_mesh({n_devices}) needs {max(n, 1)} CUDA devices; {visible} visible",
         )
-    return Mesh([torch.device("cuda", i) for i in range(n)])
+    return Mesh([torch.device("cuda", i) for i in range(n)], axes[0])
 
 
 class ShardedPlane:
@@ -337,3 +364,215 @@ def map_bands(fn, *operands):
     if isinstance(results[0], (tuple, list)):
         return tuple(ShardedPlane(mesh, bands) for bands in zip(*results))
     return ShardedPlane(mesh, results)
+
+class BatchShards:
+    """A `[B, ...]` batch held as `mesh.n` contiguous shares of `B // n`
+    canvases along the first axis, share `j` on `mesh.devices[j]`: an input
+    placed by `shard_planes_batch`, or an output of `BatchedGraph` on a
+    batch mesh, which stays where it was computed until `gather`."""
+
+    __slots__ = ("mesh", "shares", "shape")
+
+    def __init__(self, mesh: Mesh, shares):
+        shares = tuple(shares)
+        if len(shares) != mesh.n:
+            raise TexProError(ErrorKind.GENERIC, f"{len(shares)} shares for a mesh of {mesh.n}")
+        first = shares[0]
+        for share, device in zip(shares, mesh.devices):
+            if (share.dim() < 1 or share.shape != first.shape or share.dtype != first.dtype
+                    or share.device != device):
+                raise TexProError(
+                    ErrorKind.GENERIC,
+                    f"share {tuple(share.shape)} {share.dtype} on {share.device} does not "
+                    f"match {tuple(first.shape)} {first.dtype} on {device}",
+                )
+        self.mesh = mesh
+        self.shares = shares
+        self.shape = (first.shape[0] * mesh.n, *first.shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shares[0].dtype
+
+    def gather(self, device) -> torch.Tensor:
+        """The whole batch as one tensor on `device`, counted as a `batch`
+        gather."""
+        MESH_COUNTERS.count_gather("batch")
+        out = torch.empty(self.shape, dtype=self.dtype, device=torch.device(device))
+        b = self.shares[0].shape[0]
+        for j, share in enumerate(self.shares):
+            out[j * b:(j + 1) * b].copy_(share)  # each share copied once, into place
+        return out
+
+    def __repr__(self) -> str:
+        return f"BatchShards({self.shape}, {self.dtype}, {self.mesh})"
+
+
+def shard_planes_batch(mesh: Mesh, stacked) -> BatchShards:
+    """Place a `[B, H, W]` batch (a tensor or a numpy array) over a batch
+    mesh: `B // n` consecutive canvases to each shard's device, as f32.
+    Raises unless the mesh's axis is `"batch"` and `B` divides over it."""
+    if mesh.axis_name != BATCH_AXIS:
+        raise TexProError(
+            ErrorKind.GENERIC, f"shard_planes_batch needs a {BATCH_AXIS!r} mesh, got {mesh}"
+        )
+    if not isinstance(stacked, torch.Tensor):
+        stacked = torch.from_numpy(np.ascontiguousarray(stacked, dtype=np.float32))
+    if stacked.dim() < 1 or stacked.shape[0] % mesh.n:
+        raise TexProError(
+            ErrorKind.GENERIC,
+            f"a batch of {tuple(stacked.shape)} does not shard over {mesh.n} devices",
+        )
+    b = stacked.shape[0] // mesh.n
+    return BatchShards(mesh, [
+        stacked[j * b:(j + 1) * b].to(device=device, dtype=torch.float32).contiguous()
+        for j, device in enumerate(mesh.devices)
+    ])
+
+
+def _is_planes(value) -> bool:
+    """A plane-tuple argument (`input_`, `image_`, `embed_`, `preset_`)."""
+    return isinstance(value, (tuple, list)) and bool(value) and all(
+        isinstance(p, (np.ndarray, torch.Tensor, BatchShards)) for p in value)
+
+
+def _with_batch(t: torch.Tensor, rank: int, b: int) -> torch.Tensor:
+    """`t`, whose one canvas has `rank` axes, as a batch of `b`: a batched
+    one as it is, an unbatched one broadcast (a view, as vmap's
+    `out_axes=0` gives it)."""
+    return t if t.dim() == rank + 1 else t.expand(b, *t.shape)
+
+
+class BatchedGraph:
+    """A fused graph program over a batch of canvases: the JAX package's
+    `BatchedGraph`, vmap of `CompiledGraph` over the arguments named in
+    `batch_keys`.
+
+    A batch key names a plane tuple whose planes are `[B, H, W]` batches
+    (`input_<id>`, `image_<id>`, ...; a `BatchShards` from
+    `shard_batch_arg` too) or a Value (`value_<id>`, a `[B]` vector, one
+    value per canvas); every other argument is shared by all canvases. The
+    evaluator runs once over the whole batch: the ops broadcast, an
+    unbatched value is computed once, and the Blur, Distance and Warp
+    kernels take the whole batch in one launch each. A call returns
+    `{(node_id, slot_id): planes}` for the targets, each plane `[B, H, W]`
+    (an unbatched target broadcast), or with `include_u8` the
+    `[B, H, W, 4]` u8 export. Canvas `i` is bit-identical to the
+    single-canvas `CompiledGraph` on canvas `i`.
+
+    `mesh`: a `"batch"` mesh (`make_mesh(..., axes=("batch",))`). Each
+    device evaluates its contiguous share of the batch, with the kernels;
+    the outputs are `BatchShards` that stay on their devices until the
+    caller gathers them. A batch that does not divide over the mesh is
+    evaluated whole on the mesh's first device (the JAX package replicates
+    it). A `"rows"` mesh (the JAX package's vmap of the row-sharded kernels)
+    and `dtype="bfloat16"` are not yet ported. `device` is the card unless
+    given (with a mesh, its first device).
+    """
+
+    def __init__(self, node_graph, batch_keys, targets=None, include_u8: bool = False,
+                 mesh=None, dtype=None, device=None):
+        from ..compiler import CompiledGraph
+
+        if mesh is not None:
+            if mesh.axis_name != BATCH_AXIS:
+                raise TexProError(
+                    ErrorKind.NODE_PROCESSING,
+                    f"BatchedGraph over a {mesh.axis_name!r} mesh is not yet ported",
+                )
+            device = mesh.devices[0]
+        self.base = CompiledGraph(node_graph, targets, include_u8, dtype=dtype, device=device)
+        self.batch_keys = set(batch_keys)
+        self.mesh = mesh
+        self._programs = {self.base.device: self.base}  # device → its program
+
+    def _program(self, device):
+        """The base program evaluated on another device of the mesh."""
+        from ..compiler import GraphCompiler
+
+        program = self._programs.get(device)
+        if program is None:
+            program = copy.copy(self.base)
+            program._compiler = GraphCompiler(program.node_graph, device, preset=program.preset)
+            program.device = program._compiler.device
+            self._programs[device] = program
+        return program
+
+    def _batch_size(self, args: dict) -> int:
+        sizes = set()
+        for key in self.batch_keys & set(args):
+            value = args[key]
+            if _is_planes(value):
+                dims = {tuple(p.shape)[:1] if len(p.shape) == 3 else None for p in value}
+            elif re.fullmatch(r"(g\d+_)*value_\d+", key) and np.ndim(value) == 1:
+                dims = {tuple(np.shape(value))}
+            else:
+                raise TexProError(
+                    ErrorKind.NODE_PROCESSING,
+                    f"batch key {key!r} must hold [B, H, W] planes or a [B] Value vector; "
+                    "other batched arguments are not yet ported",
+                )
+            if None in dims or len(dims) != 1:
+                raise TexProError(
+                    ErrorKind.GENERIC, f"batch key {key!r} holds no single batch axis: {dims}"
+                )
+            sizes |= dims
+        if len(sizes) != 1:
+            raise TexProError(
+                ErrorKind.GENERIC, f"the batch keys bound hold batches of {sorted(sizes)}"
+            )
+        return sizes.pop()[0]
+
+    def _share_args(self, args: dict, j: int, lo: int, hi: int, device) -> dict:
+        """The arguments of share `j` (canvases `lo:hi`) on `device`."""
+        out = {}
+        for key, value in args.items():
+            batched = key in self.batch_keys
+            if _is_planes(value):
+                planes = []
+                for p in value:
+                    if isinstance(p, BatchShards):
+                        p = p.shares[j] if p.mesh == self.mesh else p.gather(device)[lo:hi]
+                    elif batched:
+                        p = p[lo:hi]
+                    planes.append(torch.as_tensor(p))
+                value = tuple(p.to(device=device, dtype=torch.float32) for p in planes)
+            elif batched:
+                value = np.asarray(value, np.float32)[lo:hi]
+            out[key] = value
+        return out
+
+    def _run(self, program, args: dict, b: int) -> dict:
+        rank = 3 if self.base.include_u8 else 2
+        return {key: _with_batch(out, rank, b) if self.base.include_u8
+                else tuple(_with_batch(p, rank, b) for p in out)
+                for key, out in program(**args).items()}
+
+    def __call__(self, **overrides) -> dict:
+        args = dict(self.base._bindings)
+        args.update(overrides)
+        batch = self._batch_size(args)
+        mesh = self.mesh
+        if mesh is None or batch % mesh.n:
+            device = self.base.device
+            return self._run(self.base, self._share_args(args, 0, 0, batch, device), batch)
+        b = batch // mesh.n
+        per_share = [
+            self._run(self._program(d), self._share_args(args, j, j * b, (j + 1) * b, d), b)
+            for j, d in enumerate(mesh.devices)
+        ]
+        out = {}
+        for key, first in per_share[0].items():
+            if self.base.include_u8:
+                out[key] = BatchShards(mesh, [r[key] for r in per_share])
+            else:
+                out[key] = tuple(BatchShards(mesh, [r[key][i] for r in per_share])
+                                 for i in range(len(first)))
+        return out
+
+    def shard_batch_arg(self, stacked_planes):
+        """A `[B, ...]` argument placed over the mesh's batch axis
+        (`shard_planes_batch`); without a mesh, as it is."""
+        if self.mesh is None:
+            return stacked_planes
+        return shard_planes_batch(self.mesh, stacked_planes)

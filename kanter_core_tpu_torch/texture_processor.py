@@ -25,7 +25,7 @@ from .errors import ErrorKind, TexProError
 from .ids import NodeId, SlotId
 from .live_graph import LiveGraph
 from .node import AtomicFlag
-from .parallel.sharded import MESH_COUNTERS, Mesh
+from .parallel.sharded import MESH_COUNTERS, ROW_AXIS, Mesh
 from .process_pack import ProcessPackManager
 from .profiling import NodeTimeline
 from .recipe_cache import RecipeCache
@@ -94,6 +94,12 @@ class TextureProcessor:
                 raise TexProError(
                     ErrorKind.GENERIC,
                     f"mesh must be a kanter_core_tpu_torch.parallel.Mesh, got {type(mesh).__name__}",
+                )
+            if mesh.axis_name != ROW_AXIS:
+                raise TexProError(
+                    ErrorKind.GENERIC,
+                    f"TextureProcessor(mesh=...) shards rows; {mesh} is a {mesh.axis_name!r} "
+                    "mesh (parallel.BatchedGraph takes those)",
                 )
             if mesh.device_type != self.device.type:
                 raise TexProError(

@@ -59,8 +59,12 @@ def launches(fn, runs: int):
                   and not e.name.startswith("Memcpy") and not e.name.startswith("Memset")]
         events.sort(key=lambda e: e.time_range.start)
         per_run.append([(e.name, e.time_range.elapsed_us()) for e in events])
-    names = [name for name, _ in per_run[0]]
-    if any([name for name, _ in run] != names for run in per_run):
+    # the profiler now and then loses a launch: keep the runs that saw the
+    # launch list most runs saw, and raise unless they are most of the runs
+    lists = [[name for name, _ in run] for run in per_run]
+    names = max(lists, key=lists.count)
+    per_run = [run for run, seen in zip(per_run, lists) if seen == names]
+    if 2 * len(per_run) <= len(lists):
         raise AssertionError("the runs launched different kernels")
     return [(name, float(np.median([run[i][1] for run in per_run])))
             for i, name in enumerate(names)]

@@ -572,3 +572,115 @@ def test_transform_gathers_once_per_evaluation_on_a_two_shard_card_mesh(card):
     chip_smoke.compare_runs("wood", two.results, one.results, "mesh vs single device")
     transforms = [m["gathers"]["transform"] for m in two.mesh_counts]
     assert transforms == [e["transform"] for e in one.expected] == [1, 1, 2]
+
+
+# --- the batched launches ---------------------------------------------------
+
+
+def _batch_on(card, b, h, w, seed):
+    return torch.from_numpy(np.random.default_rng(seed).random((b, h, w), dtype=np.float32)).to(card)
+
+
+def _int_view(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("b,h,w,sigma", [
+    (1, 256, 256, 6.0), (3, 97, 411, 1.5), (3, 5, 300, 6.0), (5, 63, 127, 1.2),
+    (2, 200, 3, 0.8), (3, 40, 50, 12.0), (2, 200, 333, 10.4),
+])
+def test_cuda_blur_batch_is_one_launch_bit_identical_to_plain(card, b, h, w, sigma):
+    x = _batch_on(card, b, h, w, b + h + w)
+    before = (blur.BLUR_KERNEL.launches, blur.BLUR_KERNEL.batched_launches)
+    got = blur.blur_plane(x, sigma)
+    assert (blur.BLUR_KERNEL.launches, blur.BLUR_KERNEL.batched_launches) == (
+        before[0] + 1, before[1] + (b > 1))
+    assert torch.equal(_int_view(got), _int_view(blur.blur_plane_plain(x, sigma)))
+    for i in (0, b - 1):  # each canvas as the single-plane entry gives it
+        assert torch.equal(_int_view(got[i]), _int_view(blur.blur_plane_cuda(x[i], sigma)))
+
+
+@pytest.mark.parametrize("b,h,w,density", [
+    (1, 256, 256, 1e-3), (3, 97, 411, 0.01), (3, 96, 160, 0.01), (5, 10, 12, 0.1),
+    (2, 33, 2049, 0.001),
+])
+def test_cuda_jfa_batch_is_one_ladder_bit_identical_to_plain(card, b, h, w, density):
+    from kanter_core_tpu_torch.ops import distance
+
+    rng = np.random.default_rng(h * w + b)
+    mask = torch.from_numpy((rng.random((b, h, w)) < density).astype(np.float32)).to(card)
+    state = distance.pack_seeds(mask)
+    kernels = (distance.JFA_KERNEL, distance.JFA_NEAR_KERNEL)
+    before = [(k.launches, k.batched_launches) for k in kernels]
+    got = distance.jfa_propagate(state)
+    far = sum(1 for launch in distance.jfa_launch_plan(h, w) if launch.entry == "step")
+    assert [(k.launches, k.batched_launches) for k in kernels] == [
+        (before[0][0] + far, before[0][1] + far * (b > 1)), (before[1][0] + 1, before[1][1] + (b > 1))]
+    assert torch.equal(got, distance.jfa_propagate_plain(state))
+    for i in (0, b - 1):
+        assert torch.equal(got[i], distance.jfa_propagate_cuda(state[i].contiguous()))
+
+
+@pytest.mark.parametrize("batched", ["planes", "strength", "both", "one"])
+@pytest.mark.parametrize("h,w,payload", [(256, 256, (37.0, 5.0)), (97, 411, (90.0, 64.0)),
+                                         (1, 1, (37.0, 5.0)), (300, 1, (0.0, 5.0))])
+def test_cuda_warp_batch_is_one_launch_bit_identical_to_plain(card, batched, h, w, payload):
+    """Batched planes by a shared strength map (a batch stride of 0 for the
+    map), a batched map over shared planes, both batched, and a batch of
+    one: one launch, bit-identical to the plain version."""
+    from kanter_core_tpu_torch.ops import warp
+
+    b = 1 if batched == "one" else 3
+    planes = [_batch_on(card, b, h, w, i) for i in range(4)]
+    m = np.random.default_rng(9).random((b, h, w), dtype=np.float32) * np.float32(1.6) - 0.3
+    m.flat[::11] = np.nan
+    strength = torch.from_numpy(m).to(card)
+    if batched == "planes":
+        strength = strength[0].contiguous()
+    elif batched == "strength":
+        planes = [p[0].contiguous() for p in planes]
+    k = warp.warp_bindings(payload)["k"]
+    before = (warp.WARP_KERNEL.launches, warp.WARP_KERNEL.batched_launches)
+    got = warp.warp_planes(planes, strength, k)
+    assert (warp.WARP_KERNEL.launches, warp.WARP_KERNEL.batched_launches) == (
+        before[0] + 1, before[1] + (b > 1))
+    want = warp.warp_planes_plain(planes, strength, k)
+    for g, r in zip(got, want):
+        assert g.shape == (b, h, w) and torch.equal(_int_view(g), _int_view(r))
+    if batched == "one":
+        single = warp.warp_planes_cuda([p[0].contiguous() for p in planes],
+                                       strength[0].contiguous(), k)
+        for g, s in zip(got, single):
+            assert torch.equal(_int_view(g[0]), _int_view(s))
+
+
+def _batched_kernel_graph(device, mesh=None, b=4, h=96, w=80):
+    from kanter_core_tpu_torch.parallel import BatchedGraph
+
+    graph = port.NodeGraph()
+    height = graph.add_node(port.Node(port.NodeType.InputGray("height")))
+    blur_n = graph.add_node(port.Node(port.NodeType.Blur(6.0)))
+    dist = graph.add_node(port.Node(port.NodeType.Distance(512.0)))
+    warp_n = graph.add_node(port.Node(port.NodeType.Warp(37.0, 5.0)))
+    out = graph.add_node(port.Node(port.NodeType.OutputGray("out")))
+    graph.connect(height, blur_n, port.SlotId(0), port.SlotId(0))
+    graph.connect(height, dist, port.SlotId(0), port.SlotId(0))
+    graph.connect(dist, warp_n, port.SlotId(0), port.SlotId(0))
+    graph.connect(blur_n, warp_n, port.SlotId(0), port.SlotId(1))
+    graph.connect(warp_n, out, port.SlotId(0), port.SlotId(0))
+    rng = np.random.default_rng(3)
+    x = ((rng.random((b, h, w)) < 0.01) + rng.random((b, h, w)) * 0.4).astype(np.float32)
+    key = f"input_{int(height)}"
+    bg = BatchedGraph(graph, {key}, include_u8=False, device=device, mesh=mesh)
+    arg = bg.shard_batch_arg(x) if mesh is not None else x
+    (plane,) = bg(**{key: (arg,)})[(out, port.SlotId(0))]
+    return plane.gather("cpu") if mesh is not None else plane.cpu()
+
+
+def test_batched_graph_on_card_matches_cpu_and_a_batch_mesh(card):
+    from kanter_core_tpu_torch.parallel import make_mesh as mk
+
+    on_card = _batched_kernel_graph("cuda")
+    assert torch.equal(_int_view(on_card), _int_view(_batched_kernel_graph("cpu")))
+    mesh = mk(devices=["cuda:0"] * 2, axes=("batch",))
+    assert torch.equal(_int_view(on_card), _int_view(_batched_kernel_graph(None, mesh)))

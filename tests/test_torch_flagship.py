@@ -120,7 +120,7 @@ def test_flagship_matches_reference_through_render_and_edits():
 @pytest.fixture(scope="module")
 def flagship():
     graph, inputs, out = flagship_graph(CANVAS)
-    prog = CompiledGraph(graph, "cpu")
+    prog = CompiledGraph(graph, emit_all=True, device="cpu")
     args = {f"input_{int(n)}": (torch.from_numpy(p),) for n, p in zip(inputs, _inputs())}
     return graph, inputs, out, prog, args, _render(prog, out, args, {})
 

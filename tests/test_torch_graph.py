@@ -146,7 +146,7 @@ def _compiled_pair(build):
     ref_graph, ref_out = build(ref)
     want = ref.CompiledGraph(ref_graph)()[(ref_out, ref.SlotId(0))]
     graph, out = build(port)
-    planes, layout = CompiledGraph(graph, "cpu").call_with_layout()
+    planes, layout = CompiledGraph(graph, emit_all=True, device="cpu").call_with_layout()
     got = [planes[i] for i in layout[(out, port.SlotId(0))]]
     return got, want
 
@@ -179,7 +179,7 @@ def test_compiled_graph_layout_keeps_aliasing():
     """Output re-keying and SeparateRgba alias their producer's planes: the
     layout reports each plane once."""
     graph = port_graphs.normal_map_graph()
-    prog = CompiledGraph(graph, "cpu")
+    prog = CompiledGraph(graph, emit_all=True, device="cpu")
     plane = torch.from_numpy(np.random.default_rng(0).random((8, 8), dtype=np.float32))
     planes, layout = prog.call_with_layout(input_rgba_first=(plane, plane, plane, plane))
     inp, sep, h2n, out = (n.node_id for n in graph.nodes)

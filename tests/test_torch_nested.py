@@ -118,7 +118,7 @@ def test_fused_argument_keys_nest_under_prefixes():
     strength = f"g{int(g0)}_g{int(g1)}_value_"
     assert {k for k in keys if k.startswith(strength)} and all(
         k.startswith(f"g{int(g0)}_g{int(g1)}_") for k in keys)
-    prog = CompiledGraph(outer, "cpu")
+    prog = CompiledGraph(outer, emit_all=True, device="cpu")
     (height,) = _planes(1)
     planes, layout = prog.call_with_layout(**{f"input_{int(oin)}": (torch.from_numpy(height),)})
     (idx,) = layout[(g0, port.SlotId(int(o)))]

@@ -130,7 +130,7 @@ def test_dangling_strength_aliases_the_input():
     graph.connect(inp, warp, SlotId(0), SlotId(0))
     graph.connect(warp, out, SlotId(0), SlotId(0))
     planes = tuple(torch.rand(6, 5) for _ in range(4))
-    prog = port_compiler.CompiledGraph(graph, "cpu")
+    prog = port_compiler.CompiledGraph(graph, emit_all=True, device="cpu")
     unique, layout = prog.call_with_layout(input_rgba_first=planes)
     assert layout[(warp, SlotId(0))] == layout[(inp, SlotId(0))]
     assert all(unique[i] is p for i, p in zip(layout[(warp, SlotId(0))], planes))
